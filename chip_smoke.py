@@ -5,8 +5,8 @@
 
 Phases (one JSON line each; any failure exits nonzero, nothing is caught):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: every hand-written kernel compiled from csrc/ with nvcc, all
-     sources at once;
+  2. build: every hand-written kernel compiled from csrc/ with nvcc, one
+     nvcc per source, all started together;
   3. refine: the Hopper refine kernel vs its bf16 plain version at the
      production shape (1, 288, 512, 24), radius 3, dilation 5, on two seed
      sets; bitwise equal; kernel and plain times (CUDA events, median of 20);
@@ -18,7 +18,24 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      12 synthetic 288x512 frames, backend and relocalization off; per-frame
      ms, peak memory, outcome counts; the kernel launch counters are zeroed
      just before and read just after;
-  6. the kernels line; 7. the device line (last line of stdout).
+  6. ray_reduce: the Hopper ray-edge kernel vs its plain version at
+     N = 147,456 points per edge (and one N off the chunk size), E edges in
+     {16, 32, 128, 512}, zero-weight rows included: f32 kernel vs f64 plain
+     within 1e-4 of each edge's largest entry, f64 kernel within 1e-10; two
+     calls bitwise equal; kernel, f64 kernel and plain times (median of 20)
+     beside the bound;
+  7. backend_tiny: SLAM(use_backend=True) with odometry at tiny_config on
+     the card vs the same on the CPU: flags equal, keyframe poses atol 1e-4;
+  8. backend_main: ViT-L 288x512 with shared heads and decoders (so that
+     identical frames track), 12 identical frames, every frame a keyframe,
+     production capacities, an odometry pose per frame, once serialized and
+     once threaded; then one add_factors of two pairs (one a loop closure)
+     and a window solve. Per-frame ms, per-task decode+match and solve ms
+     (serialized run only: its stages are timed between syncs), GN
+     iterations and ray-kernel launches per solve, edges, peak memory;
+     counters zeroed before each run and read after; any backend task that
+     failed (the worker logs it) fails the phase;
+  9. the kernels line; 10. the device line (last line of stdout).
 
 Without a card, or without the rest of the repository beside it, it exits
 nonzero before printing any result.
@@ -27,6 +44,7 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -43,7 +61,8 @@ if not torch.cuda.is_available():
 from frodo_slam_tpu_torch.config import make_config  # noqa: E402
 from frodo_slam_tpu_torch.data.synthetic import smooth_random_frames  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r  # noqa: E402
-from frodo_slam_tpu_torch.ops import refine_kernel  # noqa: E402
+from frodo_slam_tpu_torch.ops import ba_reduce_kernel, refine_kernel  # noqa: E402
+from frodo_slam_tpu_torch.ops import lie  # noqa: E402
 from frodo_slam_tpu_torch.slam import frame as frame_mod  # noqa: E402
 from frodo_slam_tpu_torch.slam import tracker  # noqa: E402
 from frodo_slam_tpu_torch.slam.inference import decode_mono  # noqa: E402
@@ -52,7 +71,9 @@ from frodo_slam_tpu_torch.utils.device import set_f32_contract  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
-KERNELS = [refine_kernel]  # every hand-written kernel module of the main path
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
+KERNELS = [refine_kernel, ba_reduce_kernel]  # every hand-written kernel module of the main paths
 DEV = torch.device("cuda:0")
 
 
@@ -200,7 +221,7 @@ def phase_main(n_frames=12):
     model = mast3r.init_model(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    slam = SLAM(make_config(), model, (h, w), use_backend=False, use_reloc=False)
+    slam = SLAM(make_config(), model, (h, w), use_backend=False)
     frames = smooth_random_frames(n_frames, h, w)
     torch.cuda.reset_peak_memory_stats()
     counts = dict(ok=0, new_kf=0, fnn=0, reset=0)
@@ -232,6 +253,240 @@ def phase_main(n_frames=12):
     return launches, ms
 
 
+# ---------------------------------------------------------------------------
+# backend: the ray-edge kernel and SLAM(use_backend=True)
+# ---------------------------------------------------------------------------
+
+RAY_KW = dict(sigma_ray=0.003, sigma_dist=10.0)
+
+
+def _ray_inputs(seed, E, N):
+    """A seeded device world: per-edge relative Sim(3)s near identity,
+    points around z = 5, weights in [0, 2) with a zeroed tenth of every edge
+    and one fully masked edge."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    xi = 0.05 * torch.randn((E, 7), generator=g, device=DEV, dtype=torch.float64)
+    T = lie.sim3_exp(xi)
+    sR = T[:, 7, None, None] * lie.quat_to_R(T[:, 3:7])
+    scal = torch.cat([sR.reshape(E, 9), T[:, :3]], dim=-1).float()
+    off = torch.tensor([0.0, 0.0, 5.0], device=DEV)[None, :, None]
+    XiT = torch.randn((E, 3, N), generator=g, device=DEV) + off
+    XjT = XiT + 0.05 * torch.randn((E, 3, N), generator=g, device=DEV)
+    w0 = 2 * torch.rand((E, N), generator=g, device=DEV)
+    w0[:, : N // 10] = 0.0
+    w0[-1] = 0.0
+    return scal, XiT, XjT, w0
+
+
+def _rel_err(got, want):
+    """Largest per-edge |got - want| over that edge's largest |entry|."""
+    E = want.shape[0]
+    scale = want.reshape(E, -1).abs().amax(1).clamp(min=1e-300)
+    return float(((got.double() - want).reshape(E, -1).abs().amax(1) / scale).max())
+
+
+def ray_bound(E, N, nbytes_per_scalar=4):
+    """Least time for one call: inputs read once (Xi, Xj, w0 per point; the
+    12 scalars per edge), outputs written once (B, g), vs the operations at
+    the f32 (or f64) peak outside the tensor cores."""
+    nbytes = nbytes_per_scalar * (E * N * 7 + E * 12 + E * 56)
+    ops = E * N * ba_reduce_kernel.FLOPS_PER_POINT
+    peak = F32_OPS_PER_S if nbytes_per_scalar == 4 else F64_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ray_reduce(Es=(16, 32, 128, 512), N=147456):
+    rk = ba_reduce_kernel
+    per_E = {}
+    cases = [(E, N) for E in Es] + [(16, N - 333)]  # the last: N off the 4096-point chunk
+    for k, (E, n) in enumerate(cases):
+        scal, XiT, XjT, w0 = _ray_inputs(k, E, n)
+        B32, g32 = rk.ray_edge_systems(scal, XiT, XjT, w0, **RAY_KW)
+        B32b, g32b = rk.ray_edge_systems(scal, XiT, XjT, w0, **RAY_KW)
+        d64 = tuple(a.double() for a in (scal, XiT, XjT, w0))
+        B64, g64 = rk.ray_edge_systems(*d64, **RAY_KW)
+        B64b, g64b = rk.ray_edge_systems(*d64, **RAY_KW)
+        torch.cuda.synchronize()
+        Bp, gp = rk.ray_edge_systems_plain(*d64, **RAY_KW)
+        out = dict(E=E, N=n,
+                   err_f32=max(_rel_err(B32, Bp), _rel_err(g32, gp)),
+                   err_f64=max(_rel_err(B64, Bp), _rel_err(g64, gp)),
+                   max_abs_err_f32=float(max((B32.double() - Bp).abs().max(),
+                                             (g32.double() - gp).abs().max())),
+                   repeatable=bool(torch.equal(B32, B32b) and torch.equal(g32, g32b)
+                                   and torch.equal(B64, B64b) and torch.equal(g64, g64b)),
+                   masked_edge_zero=bool(torch.count_nonzero(B32[-1]) == 0
+                                         and torch.count_nonzero(g32[-1]) == 0))
+        del d64, Bp, gp
+        if n == N:
+            out["ms"] = cuda_ms(lambda: rk.ray_edge_systems(scal, XiT, XjT, w0, **RAY_KW))
+            out["plain_ms"] = cuda_ms(lambda: rk.ray_edge_systems_plain(scal, XiT, XjT, w0, **RAY_KW))
+            X64 = tuple(a.double() for a in (scal, XiT, XjT, w0))
+            out["f64_ms"] = cuda_ms(lambda: rk.ray_edge_systems(*X64, **RAY_KW))
+            out["f64_bound_ms"] = ray_bound(E, n, 8)["bound_ms"]
+            del X64
+            out.update(ray_bound(E, n))
+            per_E[E] = out
+        emit("ray_reduce", **out)
+        if not (out["err_f32"] <= 1e-4 and out["err_f64"] <= 1e-10):
+            raise AssertionError(f"ray kernel disagrees with its plain version at E={E}, N={n}")
+        if not (out["repeatable"] and out["masked_edge_zero"]):
+            raise AssertionError(f"ray kernel not repeatable or masked edge not 0 at E={E}, N={n}")
+        del scal, XiT, XjT, w0
+        torch.cuda.empty_cache()
+    return per_E
+
+
+class _Failures(logging.Handler):
+    """Collects ERROR records (a failed backend task is logged by the worker
+    and swallowed there, so the log is where a failure shows)."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def _backend_cfg(**tpu):
+    """tests/test_system.py's success-path thresholds: every frame tracks
+    and becomes a keyframe; local_opt.max_iters stays 10."""
+    return make_config(
+        tracking={"match_frac_thresh": 1.1, "min_match_frac": 0.0, "Q_conf": 0.0, "max_iters": 10},
+        local_opt={"Q_conf": 0.0, "min_match_frac": 0.0},
+        tpu=tpu)
+
+
+def _odom(i):
+    return np.array([0.05 * i, 0.01 * i, 0.0, 0.0, 0.0, 0.0, 1.0], np.float32)
+
+
+def _tiny_backend(device):
+    model = _tiny_model(device)
+    h, w = 32, 64
+    img = np.random.default_rng(2).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    slam = SLAM(_backend_cfg(max_keyframes=8, max_edges=8, max_odom_edges=8), model, (h, w),
+                use_backend=True, single_thread=True, device=device)
+    flags = [slam.grab_rgb(img, timestamp=float(i), odom_pose=_odom(i))[::2] for i in range(5)]
+    poses = slam.keyframe_poses()[1]
+    out = flags, poses, list(slam.backend._pairs), slam.backend._n_odom
+    slam.terminate()
+    return out
+
+
+def phase_backend_tiny():
+    before = ba_reduce_kernel.ray_edge_systems.launches
+    fl_g, P_g, pairs_g, n_odom_g = _tiny_backend(DEV)
+    launched = ba_reduce_kernel.ray_edge_systems.launches - before
+    fl_c, P_c, pairs_c, n_odom_c = _tiny_backend(torch.device("cpu"))
+    diff = float(np.abs(P_g - P_c).max())
+    emit("backend_tiny", flags_cuda=fl_g, flags_cpu=fl_c, pairs=pairs_g, n_odom=n_odom_g,
+         pose_max_abs_diff=diff, ray_launches=launched)
+    assert fl_g == fl_c and pairs_g == pairs_c and n_odom_g == n_odom_c == 4
+    assert np.isfinite(P_g).all() and launched > 0
+    np.testing.assert_allclose(P_g, P_c, atol=1e-4)
+
+
+def _instrument(slam, rec, timed):
+    """Count GN iterations and ray-kernel launches per solve, on whichever
+    thread runs it; with ``timed``, also time each backend stage between
+    device-wide syncs. The threaded run is not timed so: a sync on the
+    worker would stall the frontend's queued work, which production does
+    not do."""
+    be = slam.backend
+    ray = ba_reduce_kernel.ray_edge_systems
+
+    def wrap(stage, fn):
+        def wrapper(*a, **k):
+            if timed:
+                torch.cuda.synchronize()
+            t0, l0 = time.perf_counter(), ray.launches
+            out = fn(*a, **k)
+            r = dict(stage=stage)
+            if timed:
+                torch.cuda.synchronize()
+                r["ms"] = (time.perf_counter() - t0) * 1e3
+            if stage == "solve":
+                r.update(be.last_solve, ray_launches=ray.launches - l0)
+            rec.append(r)
+            return out
+        return wrapper
+
+    be.add_consecutive_half = wrap("decode_match", be.add_consecutive_half)
+    be.add_factors = wrap("decode_match", be.add_factors)
+    be.solve_window_rays = wrap("solve", be.solve_window_rays)
+
+
+def _backend_run(model, frames, single_thread, extra_pairs):
+    failures = _Failures()
+    logging.getLogger("frodo_slam_tpu_torch").addHandler(failures)
+    slam = SLAM(_backend_cfg(), model, frames[0].shape[:2], use_backend=True,
+                single_thread=single_thread)
+    rec = []
+    _instrument(slam, rec, timed=single_thread)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ray, refine = ba_reduce_kernel.ray_edge_systems, refine_kernel.refine_matches
+    ray.launches = 0
+    refine.launches = 0
+    ms, flags = [], []
+    t_run = time.perf_counter()
+    for i, img in enumerate(frames):
+        t = time.perf_counter()
+        ok, T, new_kf = slam.grab_rgb(img, timestamp=float(i), odom_pose=_odom(i))
+        ms.append((time.perf_counter() - t) * 1e3)
+        flags.append((ok, new_kf))
+        assert np.isfinite(T).all()
+    slam.terminate()  # threaded: drains the queue and joins the worker
+    joined = slam._backend_worker is None and slam._backend_tasks.unfinished_tasks == 0
+    run_s = time.perf_counter() - t_run
+    if extra_pairs:
+        n = slam.store.n_total
+        slam.backend.add_factors(slam.store, [n - 2, 2], [n - 1, n - 1])  # one consecutive, one loop
+        slam.backend.solve_GN_rays(slam.store)
+    torch.cuda.synchronize()
+    launches = dict(ray_edge_systems=ray.launches, refine_matches=refine.launches)
+    logging.getLogger("frodo_slam_tpu_torch").removeHandler(failures)
+    poses = slam.keyframe_poses()[1]
+    solves = [r for r in rec if r["stage"] == "solve"]
+    out = dict(single_thread=single_thread, frames=len(frames), run_s=run_s,
+               frame_ms=[round(x, 3) for x in ms], median_frame_ms_after_first=statistics.median(ms[1:]),
+               decode_match_ms=[round(r["ms"], 3) for r in rec
+                                if r["stage"] == "decode_match" and "ms" in r],
+               solve_ms=[round(r["ms"], 3) for r in solves if "ms" in r],
+               gn_iters=[r["iters"] for r in solves], ray_launches_per_solve=[r["ray_launches"] for r in solves],
+               edge_rows=[r["edge_rows"] for r in solves], window_poses=[r["poses"] for r in solves],
+               pairs=len(slam.backend._pairs), n_odom=slam.backend._n_odom, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), joined=joined,
+               backend_task_failures=failures.records, extra_pairs=extra_pairs,
+               ok_new_kf=[sum(f[0] for f in flags), sum(f[1] for f in flags)])
+    emit("backend_main", **out)
+    assert not failures.records, f"backend tasks failed: {failures.records}"
+    assert joined, "the threaded backend did not join"
+    assert all(f == (True, True) for f in flags), flags
+    assert np.isfinite(poses).all() and poses.shape == (len(frames), 8)
+    assert launches["ray_edge_systems"] > 0, "the backend never launched the ray kernel"
+    assert launches["refine_matches"] > 0, "the backend path never launched the refine kernel"
+    assert launches["ray_edge_systems"] == sum(out["gn_iters"]) == sum(out["ray_launches_per_solve"])
+    assert len(solves) == len(frames) - 1 + int(extra_pairs)
+    return out
+
+
+def phase_backend_main(n_frames=12, hw=(288, 512), model_cfg=None):
+    h, w = hw
+    model = mast3r.init_model(model_cfg or mast3r.MASt3RConfig(), seed=0, device=DEV)
+    model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
+    model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
+    frames = smooth_random_frames(1, h, w, seed=3) * n_frames
+    ser = _backend_run(model, frames, single_thread=True, extra_pairs=True)
+    thr = _backend_run(model, frames, single_thread=False, extra_pairs=False)
+    torch.cuda.empty_cache()
+    return ser, thr
+
+
 def main():
     set_f32_contract()
     phase_device()
@@ -239,6 +494,12 @@ def main():
     rt = phase_refine()
     phase_tiny()
     launches, _ = phase_main()
+    per_E = phase_ray_reduce()
+    phase_backend_tiny()
+    ser, thr = phase_backend_main()
+    # the ray kernel's time at the edge count the main path handed it last
+    E_main = ser["edge_rows"][-1]
+    ray_t = per_E[E_main]
     kernels = [{
         "name": "refine_matches",
         "route": "cuda",
@@ -246,6 +507,7 @@ def main():
         "replaces": "frodo_slam_tpu/ops/refine_fused_pallas.py:303",
         "also_replaces": "frodo_slam_tpu/ops/refine_fused_pallas.py:322",
         "launches": launches,
+        "launches_backend_main": [ser["launches"]["refine_matches"], thr["launches"]["refine_matches"]],
         "equal_to_plain": True,
         "max_abs_err": rt["max_abs_err"],
         "ms": rt["ms"],
@@ -253,6 +515,23 @@ def main():
         "bound_ms": rt["bound_ms"],
         "bound_by": rt["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "ray_edge_systems",
+        "route": "cuda",
+        "source": "frodo_slam_tpu_torch/csrc/ray_edge_systems.cu",
+        "replaces": "frodo_slam_tpu/ops/ba_reduce_pallas.py:201",
+        "launches": ser["launches"]["ray_edge_systems"],
+        "launches_threaded": thr["launches"]["ray_edge_systems"],
+        "shape": [E_main, ray_t["N"]],
+        "max_abs_err": ray_t["max_abs_err_f32"],
+        "max_rel_err": ray_t["err_f32"],
+        "ms": ray_t["ms"],
+        "plain_ms": ray_t["plain_ms"],
+        "bound_ms": ray_t["bound_ms"],
+        "bound_by": ray_t["bound_by"],
+        "library_ms": None,
+        "per_E": {str(E): {k: v[k] for k in ("ms", "plain_ms", "f64_ms", "bound_ms", "f64_bound_ms",
+                                             "err_f32", "err_f64")} for E, v in per_E.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

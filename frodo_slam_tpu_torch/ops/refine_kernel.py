@@ -35,19 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 
 import torch
 
-_SRC = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "refine_matches.cu"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import kernel_build
+
+_SRC = kernel_build.CSRC / "refine_matches.cu"
+NVCC_FLAGS = kernel_build.NVCC_FLAGS
 
 
 def refine_matches_plain(D11: torch.Tensor, D21: torch.Tensor, p1: torch.Tensor,
@@ -99,42 +93,13 @@ def refine_matches_plain(D11: torch.Tensor, D21: torch.Tensor, p1: torch.Tensor,
     return (p_new, max_score, probes) if count_probes else (p_new, max_score)
 
 
-def _nvcc() -> str:
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    which = shutil.which("nvcc")
-    if which:
-        cands.append(which)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the refine kernel is built from source at first use")
-
-
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"librefine_matches_{digest}.so"
+def library_path():
+    return kernel_build.library_path(_SRC)
 
 
 def build():
-    """Compile the kernel into ``build/kernels/`` unless that exact source was
-    built already. Returns (seconds compiling, 0.0 when cached; the
-    compiler's output, with ptxas' register and spill report). Raises with
-    that output when nvcc fails."""
-    out = library_path()
-    if out.exists():
-        return 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return time.perf_counter() - t0, proc.stdout + proc.stderr
+    """Compile the kernel into ``build/kernels/`` (see :mod:`.kernel_build`)."""
+    return kernel_build.build(_SRC)
 
 
 @functools.lru_cache(maxsize=None)

@@ -245,6 +245,23 @@ def kf_write_pointmap(store: KeyframeStore, slot: int, frame: Frame) -> Keyframe
     return store
 
 
+def kf_update_T_WCs(store: KeyframeStore, T_WCs: torch.Tensor, slots) -> KeyframeStore:
+    """Write backend-optimized poses into their slots, in place
+    (SharedKeyframes.update_T_WCs, frame.py:568-575)."""
+    slots = torch.as_tensor(slots, dtype=torch.long, device=store.T_WC.device)
+    store.T_WC[slots] = T_WCs.to(store.T_WC.dtype)
+    return store
+
+
+def kf_snapshot(store: KeyframeStore) -> KeyframeStore:
+    """A copy of the store that later in-place writes to ``store`` do not
+    reach: what the JAX package gets for free from immutable arrays, for a
+    backend task that reads the store while the frontend writes it."""
+    return dataclasses.replace(
+        store, **{f.name: getattr(store, f.name).clone()
+                  for f in dataclasses.fields(store) if isinstance(getattr(store, f.name), torch.Tensor)})
+
+
 def kf_get_frame(store: KeyframeStore, slot: int) -> Frame:
     """Materialize one keyframe slot as a Frame view (no img)."""
     return Frame(

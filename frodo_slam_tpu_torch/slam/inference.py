@@ -1,7 +1,8 @@
 """MASt3R inference orchestration for the SLAM layer.
 
 Behavioral spec: ``mast3r_slam/mast3r_utils.py`` — ``mast3r_inference_mono``
-(:208-231) and ``mast3r_asymmetric_inference`` (:295-320). Outputs use the
+(:208-231), ``mast3r_asymmetric_inference`` (:295-320) and the backend's
+symmetric pair decode + match (:115-174, :234-293). Outputs use the
 SLAM layer's flattened layout: X (HW, 3), C (HW, 1), D (HW, 24), Q (HW, 1).
 """
 
@@ -59,6 +60,54 @@ def asym_out(res11, res21, idx_f2k, valid_match_k, img_hw) -> AsymOut:
         Qkf=flat(res21["desc_conf"], 1),
         Dff=flat(res11["desc"], res11["desc"].shape[-1]),
         Dkf=flat(res21["desc"], res21["desc"].shape[-1]),
+    )
+
+
+def decode_symmetric_batch(model, feat_i, pos_i, feat_j, pos_j, img_hw):
+    """Batched symmetric decode for the backend factor graph
+    (mast3r_utils.py:115-174): both directions of N pairs packed into one
+    decoder batch of 2N.
+
+    feat_i/feat_j: (N, n_tok, D). Returns X (4, N, h, w, 3), C (4, N, h, w),
+    D (4, N, h, w, 24), Q (4, N, h, w) ordered [ii, ji, jj, ij].
+    """
+    f1 = torch.cat([feat_i, feat_j], dim=0)
+    p1 = torch.cat([pos_i, pos_j], dim=0)
+    f2 = torch.cat([feat_j, feat_i], dim=0)
+    p2 = torch.cat([pos_j, pos_i], dim=0)
+    res1, res2 = mast3r.decode_and_heads(model, f1, p1, f2, p2, img_hw)
+    n = feat_i.shape[0]
+
+    def split4(r1, r2):
+        return torch.stack([r1[:n], r2[:n], r1[n:], r2[n:]], dim=0)
+
+    return tuple(split4(res1[k], res2[k]) for k in ("pts3d", "conf", "desc", "desc_conf"))
+
+
+def match_symmetric(model, match_cfg, feat_i, pos_i, feat_j, pos_j, img_hw):
+    """Symmetric matching for backend edges (mast3r_utils.py:234-293): one
+    decoder batch of 2N and one cold match of 2N (the backend's pair match
+    is never warm-started).
+
+    Returns (idx_i2j, idx_j2i, valid_match_j, valid_match_i, Qii, Qjj, Qji,
+    Qij) with Q* shaped (N, HW, 1).
+    """
+    mc = dict(match_cfg)
+    mc.pop("symmetric_impl", None)  # retired knob: tolerate old configs
+    cold_cfg, _ = matching.split_match_cfg(mc)
+    n = feat_i.shape[0]
+    hw = img_hw[0] * img_hw[1]
+    rs = lambda a: a.reshape(n, hw, 1)  # noqa: E731
+
+    X, C, D, Q = decode_symmetric_batch(model, feat_i, pos_i, feat_j, pos_j, img_hw)
+    X11 = torch.cat([X[0], X[2]], dim=0)  # (2N, h, w, 3): ii, jj
+    X21 = torch.cat([X[1], X[3]], dim=0)  # ji, ij
+    D11 = torch.cat([D[0], D[2]], dim=0)
+    D21 = torch.cat([D[1], D[3]], dim=0)
+    idx_1_to_2, valid_match_2 = matching.match(X11, X21, D11, D21, None, **cold_cfg)
+    return (
+        idx_1_to_2[:n], idx_1_to_2[n:], valid_match_2[:n], valid_match_2[n:],
+        rs(Q[0]), rs(Q[2]), rs(Q[1]), rs(Q[3]),
     )
 
 

@@ -1,22 +1,33 @@
-"""The SLAM frontend: one host process driving the model, matcher and
-tracker on the card.
+"""The SLAM system: one host process driving the model, matcher, tracker and
+keyframe backend on the card.
 
 Behavioral spec: ``mast3r_slam/vio.py`` — ``VIO.__init__`` (:163-256),
-``grab_rgb`` (:287-346), tracking-loss map reset (:321-328, :258-277) — with
-the upstream main-loop semantics (mono init -> track -> reset on repeated
-loss) and the JAX package's ``SLAM`` as the reference of this port.
+``grab_rgb`` (:287-346), tracking-loss map reset (:321-328, :258-277), the
+``run_backend`` worker (:75-161) — with the upstream main-loop semantics
+(mono init -> track -> queue backend -> reset on repeated loss) and the JAX
+package's ``SLAM`` as the reference of this port.
 
-This slice runs the uncalibrated frontend: the keyframe backend (BA),
-relocalization with retrieval, the PGO and height prior, and the calibrated
-tracker raise ``NotImplementedError`` naming the ROADMAP item that brings
-them. Each frame costs one fetch of the 20-float flags vector, plus the
-tracker's own small fetches (GN early exit, fnn gate; see tracker.py).
+The backend runs on keyframe creation: synchronously (``single_thread``,
+the reference's eval mode) or on one worker thread that drains an unbounded
+task queue while the frontend keeps tracking. Both threads enqueue on the
+same (default) CUDA stream, so device work is ordered by host submission. A
+threaded task reads a copy of the keyframe store taken under the lock (the
+store is written in place; the JAX package's immutable arrays give it that
+snapshot for free) and merges its solved poses back under the lock.
+
+Not in this slice, each raising ``NotImplementedError`` that names its
+ROADMAP item: relocalization with retrieval, the PGO (``local_opt_mode``),
+the height prior, and the calibrated tracker and backend. Each frame costs
+one fetch of the 20-float flags vector plus the tracker's own small fetches;
+each backend solve one small fetch per GN iteration (see global_opt.py).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import queue
+import threading
 import time
 from typing import List, Optional, Tuple
 
@@ -30,7 +41,9 @@ from ..ops import lie
 from ..utils.device import resolve_device, set_f32_contract
 from ..utils.log import get_logger
 from . import frame as frame_mod
+from .backend import BackendGraph
 from .frame import Mode
+from .global_opt import BAConfig
 from .inference import decode_mono
 from .tracker import TrackingCfg, track_step
 
@@ -38,7 +51,7 @@ log = get_logger("slam")
 
 
 class SLAM:
-    """Single-process SLAM frontend (``VIO`` class API of the reference).
+    """Single-process SLAM system (``VIO`` class API of the reference).
 
     ``model`` is a :class:`~frodo_slam_tpu_torch.models.mast3r.MASt3R` on
     ``device``; ``device=None`` means the card and raises when there is none.
@@ -51,13 +64,12 @@ class SLAM:
         img_hw: Tuple[int, int],
         calib: Optional[np.ndarray] = None,
         retrieval_db=None,
-        use_backend: bool = False,
+        use_backend: bool = True,
         use_reloc: bool = False,
+        single_thread: bool = True,
         local_opt_mode: bool = False,
         device=None,
     ):
-        if use_backend:
-            raise NotImplementedError("use_backend=True: the keyframe backend is ROADMAP.md §1 item 8")
         if use_reloc or retrieval_db is not None:
             raise NotImplementedError("retrieval and relocalization are ROADMAP.md §1 item 10")
         if local_opt_mode:
@@ -65,7 +77,9 @@ class SLAM:
         if bool(cfg.height_prior.enabled):
             raise NotImplementedError("the height prior is ROADMAP.md §1 item 11")
         if bool(cfg.use_calib) and calib is not None:
-            raise NotImplementedError("calibrated tracking (opt_pose_calib_sim3) is ROADMAP.md §1 item 9")
+            raise NotImplementedError(
+                "calibrated tracking and backend (opt_pose_calib_sim3, solve_gn_calib) "
+                "are ROADMAP.md §1 item 9")
 
         self.device = resolve_device(device)
         set_f32_contract()
@@ -87,6 +101,8 @@ class SLAM:
         self.model_cfg = model.cfg
         self.img_hw = img_hw
         self.hw = img_hw[0] * img_hw[1]
+        self.use_backend = use_backend
+        self.single_thread = single_thread
 
         t = cfg.tracking
         self.tcfg = TrackingCfg(
@@ -107,9 +123,29 @@ class SLAM:
             use_calib=False,
         )
         self.match_cfg = tuple(sorted(dict(cfg.matching).items()))
+        lo = cfg.local_opt
+        self.ba_cfg = BAConfig(
+            max_iters=int(lo.max_iters),
+            sigma_ray=float(lo.sigma_ray),
+            sigma_dist=float(lo.sigma_dist),
+            C_conf=float(lo.C_conf),
+            Q_conf=float(lo.Q_conf),
+            delta_norm=float(lo.delta_norm),
+            pin=int(lo.pin),
+            sigma_odom_t=float(lo.get("sigma_odom_t", 1e-3)),
+            sigma_odom_r=float(lo.get("sigma_odom_r", 1e-3)),
+            sigma_scale_prior=float(lo.get("sigma_scale_prior", 0.1)),
+        )
 
         self._n_tok = (img_hw[0] // self.model_cfg.patch_size) * (img_hw[1] // self.model_cfg.patch_size)
         self.store = self._new_store()
+        # the edge store is ~1.9 GB at ViT-L width and production capacities:
+        # only a system with the backend on allocates it
+        self.backend = BackendGraph(
+            self.model, self.ba_cfg, self.match_cfg, img_hw,
+            max_edges=int(cfg.tpu.max_edges), max_odom=int(cfg.tpu.max_odom_edges),
+            Q_conf=float(lo.Q_conf), min_match_frac=float(lo.min_match_frac),
+        ) if use_backend else None
 
         self.mode = Mode.INIT
         self.frame_count = 0
@@ -118,12 +154,32 @@ class SLAM:
         self.atlas: List[dict] = []  # finished maps (main.py:187-239)
         self.active_kf: Optional[frame_mod.Frame] = None  # streaming KF state
         self.current_T_WC = lie.sim3_identity().numpy()
+        self.last_odom_pose: Optional[np.ndarray] = None
         self._idx_f2k = None
         self.last_track = None
         self._encode_cache = None  # (img_obj, dev_img, feat, pos) lookahead
         # one-frame pipelined frontend state (grab_rgb_pipelined/flush)
         self._pending = None
         self._pending_result = None
+
+        # Backend tasks QUEUE and the frontend never blocks on a solve (the
+        # reference's unbounded task list, vio.py:109-115). One worker thread
+        # drains the queue serially; tasks are never dropped, since each
+        # carries its keyframe's consecutive edge and odometry factor.
+        # ``backend_queue_max`` is a backlog warning threshold only.
+        self._backend_lock = threading.Lock()  # guards store, active_kf, current pose
+        # held by the worker around each task: relocalization (ROADMAP §1
+        # item 10) waits out the in-flight task under it, not the backlog
+        self._backend_exec_lock = threading.Lock()
+        self._backend_tasks: queue.Queue = queue.Queue()
+        self._backend_queue_max = int(cfg.tpu.get("backend_queue_max", 8))
+        self._backend_worker: Optional[threading.Thread] = None
+        self._map_epoch = 0  # bumped on reset(); stale backend merges are dropped
+        self._half_reuse = bool(cfg.tpu.get("consecutive_half_reuse", True))
+        # write the active keyframe's fused pointmap back into the store every
+        # frame (the reference's tracker.py:325-328) instead of at keyframe
+        # rate, one frame of fusion behind (the default)
+        self._kf_sync_per_frame = bool(cfg.tpu.get("kf_sync_per_frame", False))
 
     def _new_store(self) -> frame_mod.KeyframeStore:
         return frame_mod.make_keyframe_store(
@@ -134,8 +190,12 @@ class SLAM:
 
     def reset(self):
         """Full map reset on tracking loss (vio.py:258-277): new keyframe
-        buffer, mode back to INIT. The finished map is kept in ``self.atlas``
-        (main.py:227-239)."""
+        buffer, backend cleared, mode back to INIT. The finished map is kept
+        in ``self.atlas`` (main.py:227-239). Pending backend tasks reference
+        the dead map: they are discarded, the in-flight one is waited out
+        (its merge is dropped by the epoch guard)."""
+        self._join_backend(discard_pending=True)
+        self._map_epoch += 1
         if self.store.n_size > 0:
             stamps, poses = self.keyframe_poses()
             self.atlas.append({"timestamps": stamps, "T_WC": poses})
@@ -143,18 +203,63 @@ class SLAM:
                         len(stamps), len(self.atlas))
         self.store = None  # free the old ring before allocating the new one
         self.store = self._new_store()
+        if self.backend is not None:
+            self.backend.reset()
         self.mode = Mode.INIT
         self.loss_track_counter = 0
         self.kf_timestamps = []
         self._pending = None
         self._pending_result = None
         self._idx_f2k = None
+        self.last_odom_pose = None
         self.active_kf = None
 
     def terminate(self):
         if self._pending is not None or self._pending_result is not None:
             self.flush()
         self.mode = Mode.TERMINATED
+        self._join_backend()
+        if self._backend_worker is not None:
+            if self._backend_worker.is_alive():
+                self._backend_tasks.put(None)  # stop sentinel
+            self._backend_worker.join()
+            self._backend_worker = None
+
+    def _join_backend(self, discard_pending: bool = False):
+        """Wait until the backend is idle (queue drained, no task running),
+        without a deadline: mutating state under a running task is a data
+        race. ``discard_pending`` first drops queued, unstarted tasks."""
+        q = self._backend_tasks
+        if discard_pending:
+            while True:
+                try:
+                    task = q.get_nowait()
+                except queue.Empty:
+                    break
+                q.task_done()
+                if task is not None:
+                    log.warning("map reset: discarded pending backend task kf=%s", task[0])
+        waited = 0.0
+        with q.all_tasks_done:
+            while q.unfinished_tasks:
+                if not q.all_tasks_done.wait(timeout=60.0):
+                    waited += 60.0
+                    log.warning("backend task still running after %.0fs; waiting", waited)
+
+    def _backend_worker_loop(self):
+        """Drain the task queue serially (run_backend loop, vio.py:86-157).
+        A failed task is logged and the loop goes on."""
+        while True:
+            task = self._backend_tasks.get()
+            try:
+                if task is None:
+                    return
+                with self._backend_exec_lock:
+                    self._backend_step(*task)
+            except Exception:
+                log.exception("backend task kf=%s failed", task[0])
+            finally:
+                self._backend_tasks.task_done()
 
     # -- frame path ----------------------------------------------------------
 
@@ -200,8 +305,9 @@ class SLAM:
             self.tcfg.filtering_mode, self.tcfg.filtering_score,
         )
         frame = dataclasses.replace(frame, X_canon=Xn, C=Cn, N=Nn, N_updates=Un)
-        self.active_kf = frame
-        self.store = frame_mod.kf_append(self.store, frame)
+        with self._backend_lock:
+            self.active_kf = frame
+            self.store = frame_mod.kf_append(self.store, frame)
         self.kf_timestamps.append(timestamp)
         self.mode = Mode.TRACKING
         self.current_T_WC = frame.T_WC.cpu().numpy()
@@ -210,22 +316,22 @@ class SLAM:
                  odom_pose: Optional[np.ndarray] = None, next_img=None):
         """Process one RGB frame (vio.py:287-346).
 
-        ``odom_pose`` feeds the backend's odometry factors, which this slice
-        does not have: passing one raises. ``next_img``: optional lookahead
-        frame whose encode is enqueued after this frame's tracking work and
-        before the flags fetch; pass the same object to the next call.
+        ``odom_pose``: optional (7+,) SE3 odometry reading [t, q]; between
+        consecutive keyframes it becomes a backend odometry factor.
+        ``next_img``: optional lookahead frame whose encode is enqueued after
+        this frame's tracking work and before the flags fetch; pass the same
+        object to the next call.
 
         Returns (success, T_WC (8,) Sim3, new_kf).
         """
-        if odom_pose is not None:
-            raise NotImplementedError("odometry factors arrive with the backend: ROADMAP.md §1 item 8")
         timestamp = time.time() if timestamp is None else timestamp
-        pend = self._dispatch_track(img, timestamp, next_img)
+        pend = self._dispatch_track(img, timestamp, odom_pose, next_img)
         if pend is None:  # INIT path resolved synchronously
             return True, self.current_T_WC, True
         return self._finalize_track(pend)
 
-    def grab_rgb_pipelined(self, img: np.ndarray, timestamp: Optional[float] = None):
+    def grab_rgb_pipelined(self, img: np.ndarray, timestamp: Optional[float] = None,
+                           odom_pose: Optional[np.ndarray] = None):
         """One-frame-deep pipelined frontend: returns the PREVIOUS frame's
         result (or None on the very first call) after enqueuing this frame's
         device work. All host bookkeeping of a frame happens before the next
@@ -234,7 +340,7 @@ class SLAM:
         the last frame."""
         timestamp = time.time() if timestamp is None else timestamp
         out = self.flush()
-        pend = self._dispatch_track(img, timestamp, None)
+        pend = self._dispatch_track(img, timestamp, odom_pose, None)
         if pend is None:
             self._pending_result = (True, self.current_T_WC, True)
         else:
@@ -251,7 +357,7 @@ class SLAM:
         pend, self._pending = self._pending, None
         return self._finalize_track(pend)
 
-    def _dispatch_track(self, img, timestamp, next_img):
+    def _dispatch_track(self, img, timestamp, odom_pose, next_img):
         """Device half of a frame: encode + tracking work. Returns the pending
         tuple for :meth:`_finalize_track`, or None for an INIT frame."""
         T_WC = torch.as_tensor(self.current_T_WC, dtype=torch.float32).to(self.device)
@@ -261,35 +367,42 @@ class SLAM:
             if next_img is not None:
                 self._encode_cache = (next_img, *self._encode_frame(next_img))
             self.init_tracking(frame, timestamp)
+            self.last_odom_pose = odom_pose
             self.frame_count += 1
             return None
 
-        prev_kf = self.active_kf
-        kf_next, fused, res = track_step(
-            self.model, self.tcfg, self.match_cfg, self.img_hw,
-            self.active_kf, frame, self._idx_f2k,
-        )
-        self.active_kf = kf_next
+        with self._backend_lock:  # a backend merge may replace active_kf
+            prev_kf = self.active_kf
+            kf_next, fused, res = track_step(
+                self.model, self.tcfg, self.match_cfg, self.img_hw,
+                self.active_kf, frame, self._idx_f2k,
+            )
+            self.active_kf = kf_next
         self._idx_f2k = res.idx_f2k
         self.last_track = res
         if next_img is not None:
             self._encode_cache = (next_img, *self._encode_frame(next_img))
-        return (frame, prev_kf, fused, res, timestamp)
+        return (frame, prev_kf, fused, res, timestamp, odom_pose)
 
     def _finalize_track(self, pend):
         """Host half: ONE flags fetch, then all bookkeeping (keyframe
-        write-back/append, loss/reset)."""
-        frame, prev_kf, fused, res, timestamp = pend
+        write-back/append, loss/reset, backend task)."""
+        frame, prev_kf, fused, res, timestamp, odom_pose = pend
         flags = res.flags.cpu().numpy()  # ONE fetch serves every flag below
         ok = bool(flags[1] > 0)
         new_kf = bool(flags[2] > 0)
+        used_fnn = bool(flags[19] > 0)
+        if ok and not new_kf and self._kf_sync_per_frame:
+            with self._backend_lock:
+                frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), self.active_kf)
         if new_kf:
-            # sync the outgoing keyframe's fused pointmap into its slot (the
-            # reference writes it back every frame, tracker.py:325-328; here
-            # at keyframe rate like the JAX package), then append the new
-            # keyframe, both in place
-            frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), prev_kf)
-            self.store = frame_mod.kf_append(self.store, fused)
+            with self._backend_lock:
+                # sync the outgoing keyframe's fused pointmap into its slot
+                # (the reference writes it back every frame,
+                # tracker.py:325-328; here at keyframe rate like the JAX
+                # package), then append the new keyframe, both in place
+                frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), prev_kf)
+                self.store = frame_mod.kf_append(self.store, fused)
 
         if not ok:
             self._idx_f2k = None
@@ -308,17 +421,109 @@ class SLAM:
             if new_kf:
                 self.kf_timestamps.append(timestamp)
                 self._idx_f2k = None
+                odom_factor = None
+                if (odom_pose is not None and self.last_odom_pose is not None
+                        and len(self.kf_timestamps) > 1):
+                    delta = lie.se3_mul(
+                        lie.se3_inv(torch.as_tensor(np.asarray(self.last_odom_pose)[:7],
+                                                    dtype=torch.float32)),
+                        torch.as_tensor(np.asarray(odom_pose)[:7], dtype=torch.float32))
+                    n = len(self.kf_timestamps)
+                    odom_factor = (n - 2, n - 1, delta.numpy())
+                    self.last_odom_pose = odom_pose
+                if self.use_backend:
+                    # consecutive-edge half reuse: hand the backend the
+                    # tracker's direction of this pair's decode + match, not
+                    # when the fnn fallback fired (the raw projective match
+                    # was too sparse: the backend cold-matches both)
+                    half = res.pair_half if self._half_reuse and not used_fnn else None
+                    self._run_backend(len(self.kf_timestamps) - 1, odom_factor, half)
+        if odom_pose is not None and self.last_odom_pose is None:
+            self.last_odom_pose = odom_pose
 
         self.frame_count += 1
         return ok, self.current_T_WC, new_kf
+
+    # -- backend ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def _backend_step(self, idx: int, odom_factor, pair_half=None):
+        """One backend task (run_backend loop body, vio.py:109-157).
+
+        Threaded, the task reads a copy of the store taken under the lock and
+        merges the solved window poses back under the lock at the end, so the
+        frontend keeps tracking through the decode, match and solve. In
+        single_thread mode the same code runs on the frontend thread on the
+        live store (the serialized eval contract)."""
+        with self._backend_lock:
+            store = self.store if self.single_thread else frame_mod.kf_snapshot(self.store)
+            epoch = self._map_epoch
+
+        kf_set = {idx - 1} if idx >= 1 else set()
+        if pair_half is not None and (idx - 1) in kf_set:
+            # the tracker already decoded and matched its direction of this
+            # consecutive pair: only the missing direction is computed
+            self.backend.add_consecutive_half(store, idx - 1, idx, pair_half)
+            kf_set.discard(idx - 1)
+        kf_list = sorted(kf_set)
+        if kf_list:
+            self.backend.add_factors(store, kf_list, [idx] * len(kf_list))
+        if odom_factor is not None:
+            self.backend.add_odometry_factors(*odom_factor)
+
+        win = self.backend.solve_window_rays(store, None)
+        if win is None:
+            return
+        uniq, p, T_new = win
+
+        with self._backend_lock:
+            if epoch != self._map_epoch:
+                return  # the map was reset while we solved: drop the result
+            pin = self.ba_cfg.pin
+            live_total = self.store.n_total
+            live_oldest = max(0, live_total - self.store.capacity)
+            free = [(n, k) for n, k in enumerate(uniq[:p])
+                    if n >= pin and live_oldest <= k < live_total]
+            if free:
+                rows = torch.as_tensor([n for n, _ in free], device=T_new.device)
+                frame_mod.kf_update_T_WCs(self.store, T_new[rows],
+                                          [k % self.store.capacity for _, k in free])
+            # the backend moved the newest keyframe's pose: refresh the
+            # streaming active-KF state so the next track uses it. Threaded,
+            # the newest live keyframe may postdate the copy; merge only when
+            # it was part of the solved window.
+            n_latest = len(self.kf_timestamps) - 1
+            if n_latest in uniq[:p]:
+                w = uniq.index(n_latest)
+                self.active_kf = dataclasses.replace(self.active_kf, T_WC=T_new[w])
+                if self.single_thread or n_latest == idx:
+                    self.current_T_WC = T_new[w].cpu().numpy()
+
+    def _run_backend(self, idx: int, odom_factor, pair_half=None):
+        if self.single_thread:
+            self._backend_step(idx, odom_factor, pair_half)
+            return
+        # never block the frontend: enqueue and return (vio.py:333-343)
+        if self._backend_tasks.qsize() >= self._backend_queue_max:
+            log.warning("backend backlog: %d tasks pending (solves slower than the "
+                        "keyframe cadence)", self._backend_tasks.qsize())
+        if self._backend_worker is None or not self._backend_worker.is_alive():
+            self._backend_worker = threading.Thread(
+                target=self._backend_worker_loop, daemon=True, name="frodo-backend")
+            self._backend_worker.start()
+        self._backend_tasks.put((idx, odom_factor, pair_half))
 
     # -- export -----------------------------------------------------------------
 
     def keyframe_poses(self) -> Tuple[List[float], np.ndarray]:
         """(timestamps, (N, 8) Sim3 poses) of live keyframes, oldest first."""
-        n = self.store.n_size
-        total = self.store.n_total
-        slots = [k % self.store.capacity for k in range(max(0, total - n), total)]
-        poses = self.store.T_WC[torch.as_tensor(slots, dtype=torch.long,
-                                                device=self.device)].cpu().numpy()
+        with self._backend_lock:
+            n = self.store.n_size
+            total = self.store.n_total
+            slots = [k % self.store.capacity for k in range(max(0, total - n), total)]
+            poses = self.store.T_WC[torch.as_tensor(slots, dtype=torch.long,
+                                                    device=self.device)].cpu().numpy()
         return self.kf_timestamps[-n:] if n else [], poses
+
+    def get_pose(self) -> np.ndarray:
+        return self.current_T_WC

@@ -55,10 +55,17 @@ class TrackResult(NamedTuple):
     """Small per-frame result. ``flags`` packs the host-read scalars into ONE
     tensor so a single fetch serves the host control flow:
     [0] match_frac, [1] ok, [2] new_kf, [3:11] T_WCf, [11:19] T_CkCf,
-    [19] used_fnn (the JAX package's layout)."""
+    [19] used_fnn (the JAX package's layout).
+
+    ``pair_half`` is the raw projective half of this frame's pair decode from
+    BEFORE the fnn fallback, ``(idx_f2k (1, HW), valid_match_k (1, HW, 1),
+    Qff (1, HW, 1), Qkf (1, HW, 1))``: the backend reuses it for the
+    consecutive edge when the frame becomes a keyframe. It stays on the
+    device and is read only then."""
 
     flags: torch.Tensor  # (20,) f32
     idx_f2k: torch.Tensor  # (1, HW) int32, warm-starts the next frame's matcher
+    pair_half: tuple
 
 
 # ---------------------------------------------------------------------------
@@ -275,4 +282,6 @@ def track_step_post(
             used_fnn.float()[None],
         ]
     )
-    return kf_next, frame, TrackResult(flags=flags, idx_f2k=idx_f2k[None])
+    return kf_next, frame, TrackResult(
+        flags=flags, idx_f2k=idx_f2k[None],
+        pair_half=(idx_f2k_b, valid_match_k_b, out.Qff[None], out.Qkf[None]))

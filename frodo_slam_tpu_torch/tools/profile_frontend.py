@@ -47,7 +47,7 @@ def _make(args):
     cfg = mast3r.tiny_config() if args.tiny else mast3r.MASt3RConfig()
     hw = (32, 64) if args.tiny else (288, 512)
     model = mast3r.init_model(cfg, seed=0, device=dev)
-    slam = SLAM(make_config(), model, hw, device=dev)
+    slam = SLAM(make_config(), model, hw, use_backend=False, device=dev)
     frames = smooth_random_frames(args.warmup + args.frames, *hw)
     return dev, slam, frames
 

@@ -1,17 +1,21 @@
-"""The refine kernel module on its own (PyTorch and numpy only, no JAX, so
-the card-only tests also run where JAX is not installed):
+"""The kernel modules on their own (PyTorch and numpy only, no JAX, so the
+card-only tests also run where JAX is not installed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q   # on the card
 
-The plain version is held against a scalar numpy transcription of the
+The refine plain version is held against a scalar numpy transcription of the
 reference kernel (matching_kernels.cu:25-85); on the card the Hopper kernel
-is held against the plain version, bitwise.
+is held against the plain version, bitwise. The ray-edge kernel is held
+against its plain version in f64 (its plain version is held against the JAX
+package in tests/test_torch_global_opt.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from frodo_slam_tpu_torch.ops import ba_reduce_kernel as brk
+from frodo_slam_tpu_torch.ops import kernel_build
 from frodo_slam_tpu_torch.ops import refine_kernel as rk
 
 torch.set_num_threads(1)
@@ -127,3 +131,74 @@ def test_refine_kernel_rejects_bad_inputs(card):
         rk.refine_matches(D11, D21, p1[:, :5])
     with pytest.raises(ValueError):
         rk.refine_matches(D11, D21.cpu(), p1)
+
+
+# ---------------------------------------------------------------------------
+# ray_edge_systems (the backend's ray-edge normal equations)
+# ---------------------------------------------------------------------------
+
+def _ray_inputs(seed, E, N, dtype=np.float32):
+    """Per-edge relative Sim(3)s near identity, points around z = 5, weights
+    in [0, 2) with a zeroed prefix and a fully masked last edge."""
+    rng = np.random.default_rng(seed)
+    scal = 0.3 * rng.normal(size=(E, 12))
+    scal[:, [0, 4, 8]] += 1.0
+    off = np.array([0.0, 0.0, 5.0])[None, :, None]
+    XiT = rng.normal(size=(E, 3, N)) + off
+    XjT = rng.normal(size=(E, 3, N)) + off
+    w0 = rng.uniform(0, 2, size=(E, N))
+    w0[:, : N // 10] = 0.0
+    w0[-1] = 0.0
+    return tuple(a.astype(dtype) for a in (scal, XiT, XjT, w0))
+
+
+def test_ray_plain_masked_edge_is_exactly_zero():
+    args = tuple(torch.from_numpy(a) for a in _ray_inputs(0, 3, 300))
+    args[1][-1, :, :7] = 0.0  # all-zero pad points: guarded norms stay finite
+    args[2][-1, :, :7] = 0.0
+    B, g = brk.ray_edge_systems_plain(*args, sigma_ray=0.003, sigma_dist=10.0)
+    assert torch.isfinite(B).all() and torch.isfinite(g).all()
+    assert torch.count_nonzero(B[-1]) == 0 and torch.count_nonzero(g[-1]) == 0
+    assert torch.equal(B, B.transpose(1, 2))
+
+
+def test_ray_library_path_tracks_source():
+    path = kernel_build.library_path(brk._SRC)
+    assert path.name.startswith("libray_edge_systems_") and path.parent == kernel_build.BUILD_DIR
+    assert rk.library_path().parent == path.parent
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(np.float32, 1e-4), (np.float64, 1e-10)])
+@pytest.mark.parametrize("E,N", [(5, 9000), (3, 4096), (2, 100)])
+def test_ray_kernel_matches_plain_on_card(card, dtype, rel, E, N):
+    """Kernel vs the f64 plain version: per edge, |dB| and |dg| within
+    ``rel`` x that edge's largest entry (f32: a different summation order;
+    f64: rounding only). Two calls are bitwise equal; one launch per call."""
+    args = tuple(torch.from_numpy(a).to(card) for a in _ray_inputs(1, E, N, dtype))
+    kw = dict(sigma_ray=0.003, sigma_dist=10.0)
+    before = brk.ray_edge_systems.launches
+    Bk, gk = brk.ray_edge_systems(*args, **kw)
+    Bk2, gk2 = brk.ray_edge_systems(*args, **kw)
+    torch.cuda.synchronize()
+    assert brk.ray_edge_systems.launches == before + 2
+    assert Bk.dtype == args[1].dtype
+    assert torch.equal(Bk, Bk2) and torch.equal(gk, gk2)
+    Bp, gp = brk.ray_edge_systems_plain(*(a.double() for a in args), **kw)
+    for got, want in ((Bk.double(), Bp), (gk.double(), gp)):
+        scale = want.reshape(E, -1).abs().amax(1).clamp(min=1e-30)
+        err = (got - want).reshape(E, -1).abs().amax(1)
+        assert (err <= rel * scale).all(), (err / scale).tolist()
+    assert torch.count_nonzero(Bk[-1]) == 0 and torch.count_nonzero(gk[-1]) == 0
+
+
+@pytest.mark.cuda
+def test_ray_kernel_rejects_bad_inputs(card):
+    args = [torch.from_numpy(a).to(card) for a in _ray_inputs(2, 2, 64)]
+    kw = dict(sigma_ray=0.003, sigma_dist=10.0)
+    with pytest.raises(ValueError):
+        brk.ray_edge_systems(args[0], args[1], args[2][:, :, :10], args[3], **kw)
+    with pytest.raises(ValueError):
+        brk.ray_edge_systems(args[0].double(), *args[1:], **kw)
+    with pytest.raises(ValueError):
+        brk.ray_edge_systems(*(a.half() for a in args), **kw)

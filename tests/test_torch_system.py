@@ -1,9 +1,12 @@
-"""PyTorch port vs JAX package: the whole frontend slice through
-``SLAM.grab_rgb`` at ``tiny_config`` with converted weights, the backend and
-relocalization off, the f32 refine (``matching.refine_impl: gather``) on both
-sides. Frames go INIT -> TRACK -> three losses -> map reset -> TRACK.
+"""PyTorch port vs JAX package: the whole system through ``SLAM.grab_rgb``
+at ``tiny_config`` with converted weights and the f32 refine
+(``matching.refine_impl: gather``) on both sides. The frontend alone goes
+INIT -> TRACK -> three losses -> map reset -> TRACK; with the keyframe
+backend on (serialized), every identical frame becomes a keyframe and a
+backend task, with and without odometry.
 
-Bars: per-frame ``ok`` / ``new_kf`` exact, poses atol 1e-4, atlas equal.
+Bars: per-frame ``ok`` / ``new_kf`` exact, poses atol 1e-4, atlas equal,
+edge and odometry counts equal.
 """
 
 import pathlib
@@ -64,7 +67,8 @@ def _port_slam(weights, match_frac_thresh=1.1):
     tcfg = tmast3r.tiny_config()
     model = tmast3r.MASt3R(tcfg).eval()
     model.load_state_dict(tconvert.state_dict_from_jax(params, tcfg))
-    return TSLAM(t_make_config(**_overrides(match_frac_thresh)), model, (H, W), device="cpu")
+    return TSLAM(t_make_config(**_overrides(match_frac_thresh)), model, (H, W), use_backend=False,
+                 device="cpu")
 
 
 @pytest.mark.parametrize("match_frac_thresh", [0.333, 1.1])
@@ -128,13 +132,98 @@ def test_unported_options_raise(weights):
     params, _ = weights
     model = tmast3r.MASt3R(tmast3r.tiny_config())
     cfg = t_make_config()
-    for kw in ({"use_backend": True}, {"retrieval_db": object()}, {"local_opt_mode": True}):
+    for kw in ({"use_reloc": True}, {"retrieval_db": object()}, {"local_opt_mode": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TSLAM(cfg, model, (H, W), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSLAM(t_make_config(height_prior={"enabled": True}), model, (H, W), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSLAM(t_make_config(use_calib=True), model, (H, W), calib=np.eye(3), device="cpu")
+
+
+# the success fixture of tests/test_system.py:41-54: shared heads, identical
+# frames, every frame a keyframe; no retrieval database
+BACKEND_OVERRIDES = dict(
+    matching={"refine_impl": "gather"},
+    tracking={"match_frac_thresh": 1.1, "min_match_frac": 0.0, "Q_conf": 0.0, "max_iters": 10},
+    local_opt={"Q_conf": 0.0, "min_match_frac": 0.0, "max_iters": 2},
+    tpu={"max_keyframes": 8, "max_edges": 8, "max_odom_edges": 8},
+)
+
+
+def _backend_pair(weights, tracking=None, **tpu):
+    params, jcfg = weights
+    ov = {k: dict(v) for k, v in BACKEND_OVERRIDES.items()}
+    ov["tpu"].update(tpu)
+    ov["tracking"].update(tracking or {})
+    js = JSLAM(j_make_config(**ov), params, jcfg, (H, W), retrieval_db=None, use_backend=True,
+               use_reloc=False, single_thread=True)
+    tcfg = tmast3r.tiny_config()
+    model = tmast3r.MASt3R(tcfg).eval()
+    model.load_state_dict(tconvert.state_dict_from_jax(params, tcfg))
+    ts = TSLAM(t_make_config(**ov), model, (H, W), use_backend=True, single_thread=True,
+               device="cpu")
+    return js, ts
+
+
+def _odom(i):
+    return np.array([0.1 * i, 0.02 * i, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0], np.float32)
+
+
+@pytest.mark.parametrize("with_odom", [False, True], ids=["rays", "odometry"])
+def test_backend_serialized_matches_jax_slam(weights, with_odom):
+    """``SLAM(use_backend=True, single_thread=True)``: five identical frames,
+    each a keyframe whose backend task inserts the consecutive edge (the
+    tracker's half reused) and solves the window; with ``odom_pose`` per
+    frame, odometry factors join the solve."""
+    js, ts = _backend_pair(weights)
+    img = _imgs()[0]
+    for i in range(5):
+        odom = _odom(i) if with_odom else None
+        okj, Tj, kfj = js.grab_rgb(img, timestamp=float(i), odom_pose=odom)
+        okt, Tt, kft = ts.grab_rgb(img, timestamp=float(i), odom_pose=odom)
+        assert (okt, kft) == (okj, kfj) == (True, True), f"frame {i}"
+        np.testing.assert_allclose(Tt, np.asarray(Tj), atol=1e-4, err_msg=f"frame {i}")
+    assert len(ts.backend._pairs) == len(js.backend._pairs) == 4
+    assert ts.backend._pairs == js.backend._pairs
+    assert ts.backend._n_odom == js.backend._n_odom == (4 if with_odom else 0)
+    st, pt = ts.keyframe_poses()
+    sj, pj = js.keyframe_poses()
+    assert st == sj and np.isfinite(pt).all()
+    np.testing.assert_allclose(pt, pj, atol=1e-4)
+    if with_odom:  # the odometry moved the keyframes off the rays' identity
+        assert np.abs(pt[1:, :3]).max() > 1e-3
+    ts.terminate()
+    js.terminate()
+
+
+@pytest.mark.parametrize("knob", ["no_half_reuse", "kf_sync_per_frame"])
+def test_backend_knobs_match_jax(weights, knob):
+    """``tpu.consecutive_half_reuse: false``: the backend decodes and matches
+    both directions of the consecutive pair (add_factors).
+    ``tpu.kf_sync_per_frame: true`` with the default keyframe threshold:
+    tracked frames that stay on the keyframe write its fused pointmap back
+    into the store every frame."""
+    if knob == "no_half_reuse":
+        js, ts = _backend_pair(weights, consecutive_half_reuse=False)
+    else:
+        js, ts = _backend_pair(weights, tracking={"match_frac_thresh": 0.333},
+                               kf_sync_per_frame=True)
+    img = _imgs()[0]
+    for i in range(3):
+        okj, Tj, kfj = js.grab_rgb(img, timestamp=float(i))
+        okt, Tt, kft = ts.grab_rgb(img, timestamp=float(i))
+        assert (okt, kft) == (okj, kfj)
+        np.testing.assert_allclose(Tt, np.asarray(Tj), atol=1e-4)
+    if knob == "no_half_reuse":
+        assert ts.backend._pairs == js.backend._pairs == [(0, 1), (1, 2)]
+    else:
+        assert ts.store.n_total == int(js.store.n_total) == 1
+        assert int(ts.store.N[0]) == int(js.store.N[0]) == 3  # fused twice after init
+        # fused through T_CkCf, which agrees to 1e-4 (GN in f32), on points up to ~10
+        np.testing.assert_allclose(ts.store.X_canon[0].numpy(), np.asarray(js.store.X_canon[0]),
+                                   rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(ts.keyframe_poses()[1], js.keyframe_poses()[1], atol=1e-4)
 
 
 CONFIGS = sorted((pathlib.Path(__file__).resolve().parents[1] / "configs").glob("*.yaml"))
@@ -167,7 +256,7 @@ def test_portrait_frames_match_jax_slam(weights):
     tcfg = tmast3r.tiny_config()
     model = tmast3r.MASt3R(tcfg).eval()
     model.load_state_dict(tconvert.state_dict_from_jax(params, tcfg))
-    ts = TSLAM(t_make_config(**ov), model, (W, H), device="cpu")
+    ts = TSLAM(t_make_config(**ov), model, (W, H), use_backend=False, device="cpu")
     assert ts.portrait and ts.model.cfg.portrait and not model.cfg.portrait
     assert ts.model.enc_norm.weight is model.enc_norm.weight
     a, b = (np.swapaxes(x, 0, 1).copy() for x in _imgs()[2:4])
