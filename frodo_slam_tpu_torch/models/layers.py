@@ -8,7 +8,9 @@ checkpoint loads with ``load_state_dict``.
 
 Numerics follow the JAX package: a linear casts its weight to the activation
 dtype (bf16 transformer by default), layernorms compute in f32 and cast
-back, GELU is exact, attention is ``F.scaled_dot_product_attention``.
+back, GELU is exact. Every attention goes through
+:func:`~frodo_slam_tpu_torch.ops.attention_kernel.flash_attention` (the
+Hopper kernel on the card, its plain version on the CPU).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.attention_kernel import flash_attention
 
 
 # ---------------------------------------------------------------------------
@@ -89,10 +93,11 @@ def apply_rope2d(tokens: torch.Tensor, pos: torch.Tensor, base: float = 100.0) -
 
 
 def _sdpa(q, k, v):
-    """q, k, v: (B, heads, N, hd) -> (B, N, heads*hd)."""
+    """q, k, v: (B, heads, N, hd) -> (B, N, heads*hd). One function for
+    both of the JAX package's ``attention_impl`` values ("xla" and
+    "pallas"), at any N (JAX's pallas path needs N % 128 blocks)."""
     b, h, n, hd = q.shape
-    out = F.scaled_dot_product_attention(q, k, v)
-    return out.transpose(1, 2).reshape(b, n, h * hd)
+    return flash_attention(q, k, v).transpose(1, 2).reshape(b, n, h * hd)
 
 
 class Attention(nn.Module):

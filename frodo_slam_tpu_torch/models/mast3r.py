@@ -54,10 +54,17 @@ class MASt3RConfig:
     dpt_layer_dims: Tuple[int, ...] = (96, 192, 384, 768)
     dtype: torch.dtype = torch.bfloat16  # encoder/decoder compute dtype
     head_dtype: torch.dtype = torch.float32  # heads: f32 is the reference contract
+    # the JAX package's "xla" | "pallas": both compute the one attention
+    # function that the port's kernel computes at any N (layers._sdpa)
+    attention_impl: str = "xla"
     # portrait inputs (true height > width) are stored transposed into
     # landscape layout and flagged here; the patch embed / heads transpose
     # in and out (ManyAR_PatchEmbed + transpose_to_landscape)
     portrait: bool = False
+
+    def __post_init__(self):
+        if self.attention_impl not in ("xla", "pallas"):
+            raise ValueError(f"attention_impl {self.attention_impl!r} is not 'xla' or 'pallas'")
 
     @property
     def hooks(self) -> Tuple[int, int, int, int]:

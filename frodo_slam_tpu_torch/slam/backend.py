@@ -22,10 +22,12 @@ import numpy as np
 import torch
 
 from ..ops import matching
+from ..ops.geometry import constrain_points_to_ray
 from ..utils.log import get_logger
 from . import frame as frame_mod
 from .frame import KeyframeStore
-from .global_opt import BAConfig, Edges, OdomEdges, empty_edges, empty_odom_edges, solve_gn_rays
+from .global_opt import (BAConfig, Edges, OdomEdges, empty_edges, empty_odom_edges, solve_gn_calib,
+                         solve_gn_rays)
 from .inference import decode_asymmetric, match_symmetric
 
 log = get_logger("backend")
@@ -383,6 +385,30 @@ class BackendGraph:
                               odom_win, sb, stats=stats)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
+
+    def solve_window_calib(self, store: KeyframeStore, K: torch.Tensor,
+                           s_bar: Optional[np.ndarray] = None):
+        """Calibrated pixel/log-depth window solve (global_opt.py:288-341):
+        the window's points are constrained to their pixel rays first
+        (:298-300). Same return contract as :meth:`solve_window_rays`."""
+        win = self._build_window(store, s_bar)
+        if win is None:
+            return None
+        uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
+        X_win = constrain_points_to_ray(self.img_hw, X_win, K)
+        stats: dict = {}
+        T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, K,
+                               edges_win, odom_win, sb, stats=stats)
+        self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
+        return uniq, p, T_new
+
+    def solve_GN_calib(self, store: KeyframeStore, K: torch.Tensor,
+                       s_bar: Optional[np.ndarray] = None) -> KeyframeStore:
+        """Calibrated window solve + immediate write-back."""
+        out = self.solve_window_calib(store, K, s_bar)
+        if out is None:
+            return store
+        return self._write_back(store, *out)
 
     def solve_GN_rays(self, store: KeyframeStore, s_bar: Optional[np.ndarray] = None) -> KeyframeStore:
         """Window solve + immediate write-back (the serialized path)."""

@@ -5,14 +5,18 @@ upstream per-edge confidence storage (``global_opt_bk0.py:107-147``); the
 ray-alignment residual of ``gn_kernels.cu:576-907``; the odometry SE(3)-log
 constraint of ``gn_kernels.cu:1106-1290`` (with an exact Jacobian); the scale
 prior of ``gn_kernels.cu:1716-1790``; the outer loop
-``gauss_newton_rays_odom_cuda`` (:1792-1934). The JAX package's
+``gauss_newton_rays_odom_cuda`` (:1792-1934); the calibrated pixel +
+log-depth residual of ``calib_proj_kernel`` (:2295-2608) with its outer loop
+``gauss_newton_calib_cuda`` (:2610-2702). The JAX package's
 ``slam/global_opt.py`` is the reference of this port.
 
 Since ``Ji = -Jj``, each directed edge's 14x14 Hessian is
 ``[[A, -A], [-A, A]]`` with ``A = M^T B M``, where B is the 7x7 Gram of the
 relative-pose Jacobian and ``M = AdjInv(T_i)``: only B and its gradient are
 reduced over the points, by the Hopper kernel of :mod:`..ops.ba_reduce_kernel`
-(its plain version on a CPU tensor). The dense (7P x 7P) system is assembled
+(its plain version on a CPU tensor); the calibrated edges, which JAX reduces
+with XLA too, are batched tensor code over chunks of edges
+(:func:`_calib_edge_systems`). The dense (7P x 7P) system is assembled
 on the device and Cholesky-solved there in f64 (the reference's double Eigen
 solve, and the JAX package under x64).
 
@@ -23,6 +27,7 @@ iteration it runs, and its result is the JAX ``lax.while_loop``'s.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -45,6 +50,18 @@ class BAConfig(NamedTuple):
     sigma_odom_t: float = 1e-3
     sigma_odom_r: float = 1e-3
     sigma_scale_prior: float = 0.1
+    sigma_pixel: float = 1.0
+    sigma_depth: float = 10.0
+    pixel_border: float = -10.0
+    depth_eps: float = 1e-6
+
+
+# points per step of the calibrated edge reduction: bounds its (c, N, 3, 8)
+# Jacobian-and-residual rows to ~190 MB in f32 (10 edges at 512x384)
+CALIB_CHUNK_POINTS = 1 << 21
+# each edge's sum over its rows is split into this many batched products: one
+# (7 x 3N) by (3N x 8) product per edge keeps a card to one tile per edge
+CALIB_REDUCE_SPLIT = 128
 
 
 class Edges(NamedTuple):
@@ -154,6 +171,78 @@ def _kernel_ray_fn(cfg: BAConfig):
         return A.to(T_WC_in.dtype), gj.to(T_WC_in.dtype)
 
     return fn
+
+
+def _reduce_rel_systems(D, w, err, P):
+    """Per-edge 7x7 Gram and gradient of residual rows ``D . [I | -skew(P) | P]``
+    summed over the points: D (c, N, R, 3), w and err (c, N, R), P (c, N, 3).
+    Row r of the Jacobian is ``[d_r, P x d_r, d_r . P]``; with the residual as
+    an eighth column, one batched product ``(w J)^T [J | err]``, split along
+    the points (:data:`CALIB_REDUCE_SPLIT`), gives both sums.
+    Returns (B (c, 7, 7), g (c, 7))."""
+    c, N, R, _ = D.shape
+    Pb = P[:, :, None, :].expand_as(D)
+    Ja = torch.cat([D, torch.linalg.cross(Pb, D, dim=-1), (D * Pb).sum(-1, keepdim=True),
+                    err[..., None]], dim=-1)  # (c, N, R, 8)
+    split = math.gcd(N * R, CALIB_REDUCE_SPLIT)
+    Ja = Ja.reshape(c * split, N * R // split, 8)
+    Jw = Ja[..., :7] * w.reshape(c * split, -1, 1)
+    G = (Jw.transpose(1, 2) @ Ja).reshape(c, split, 7, 8).sum(1)
+    return G[..., :7], G[..., 7]
+
+
+def _calib_edge_systems(cfg: BAConfig, img_hw, K, T_WC, ii, jj, idx, XiT, w0, XjT):
+    """Calibrated pixel + log-depth edges (calib_proj_kernel,
+    gn_kernels.cu:2295-2608) -> (A (E, 7, 7), gj (E, 7)). Residual
+    [u - u_meas, v - v_meas, log z_j - log z_i] with pinhole K, where
+    (u_meas, v_meas) is the matched pixel ``idx`` in frame i; a point counts
+    when both depths exceed ``depth_eps`` and the projection lies inside the
+    pixel border. Xi enters through its depth alone, which ray-constraining
+    preserves: so the cached insertion-time ``XiT`` serves a solve on
+    constrained pointmaps (the JAX package's invariant)."""
+    height, width = img_hw
+    E, _, N = XiT.shape
+    dt = XiT.dtype
+    fx, fy, cx, cy = (K[0, 0].to(dt), K[1, 1].to(dt), K[0, 2].to(dt), K[1, 2].to(dt))
+    Ti = T_WC[ii.long()]
+    Tij = lie.sim3_rel(Ti, T_WC[jj.long()]).to(dt)
+    M = _adj_inv_matrix(Ti).to(dt)
+    A = torch.empty((E, 7, 7), dtype=dt, device=XiT.device)
+    gj = torch.empty((E, 7), dtype=dt, device=XiT.device)
+    step = max(1, CALIB_CHUNK_POINTS // max(N, 1))
+    for e0 in range(0, E, step):
+        sl = slice(e0, min(E, e0 + step))
+        P = lie.sim3_act(Tij[sl, None, :], XjT[sl].transpose(1, 2))  # (c, N, 3) in frame i
+        zi = XiT[sl, 2]
+        valid_z = (P[..., 2] > cfg.depth_eps) & (zi > cfg.depth_eps)
+        z_inv = torch.where(valid_z, 1.0 / torch.where(valid_z, P[..., 2], 1.0), 0.0)
+        x_div_z = P[..., 0] * z_inv
+        y_div_z = P[..., 1] * z_inv
+        u = fx * x_div_z + cx
+        v = fy * y_div_z + cy
+        ids = idx[sl].long()
+        u_t = (ids % width).to(dt)
+        v_t = torch.div(ids, width, rounding_mode="floor").to(dt)
+        valid_u = (u > cfg.pixel_border) & (u < width - 1 - cfg.pixel_border)
+        valid_v = (v > cfg.pixel_border) & (v < height - 1 - cfg.pixel_border)
+        zj_log = torch.where(valid_z, torch.log(torch.where(valid_z, P[..., 2], 1.0)), 0.0)
+        zi_log = torch.where(valid_z, torch.log(torch.clamp(zi, min=cfg.depth_eps)), 0.0)
+        err = torch.stack([u - u_t, v - v_t, zj_log - zi_log], dim=-1)  # (c, N, 3)
+        okf = (valid_u & valid_v & valid_z).to(dt) * w0[sl]
+        sw_pix = okf / cfg.sigma_pixel
+        sqrt_w = torch.stack([sw_pix, sw_pix, okf / cfg.sigma_depth], dim=-1)
+        w = huber(sqrt_w * err) * sqrt_w * sqrt_w
+        # D = d[u, v, log z]/dP (gn_kernels.cu:2486-2545)
+        zeros = torch.zeros_like(z_inv)
+        D = torch.stack([
+            torch.stack([fx * z_inv, zeros, -fx * x_div_z * z_inv], dim=-1),
+            torch.stack([zeros, fy * z_inv, -fy * y_div_z * z_inv], dim=-1),
+            torch.stack([zeros, zeros, z_inv], dim=-1),
+        ], dim=-2)  # (c, N, 3, 3)
+        B, g = _reduce_rel_systems(D, w, err, P)
+        A[sl] = torch.einsum("eba,ebc,ecd->ead", M[sl], B, M[sl])
+        gj[sl] = torch.einsum("eba,eb->ea", M[sl], g)
+    return A.to(T_WC.dtype), gj.to(T_WC.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -376,3 +465,16 @@ def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: O
     xs = (edges.ii, edges.jj, XiT, w0, XjT)
     fn = _kernel_ray_fn(cfg)
     return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, lambda T: fn(T, xs), stats=stats)
+
+
+@torch.no_grad()
+def solve_gn_calib(cfg: BAConfig, num_fix: int, img_hw, T_WC, X, C, K, edges: Edges,
+                   odom: OdomEdges, s_bar, stats: Optional[dict] = None):
+    """Calibrated pixel + log-depth global GN (gauss_newton_calib_cuda,
+    gn_kernels.cu:2610-2702; caller global_opt.py:288-341) with the same
+    outer loop, odometry rows and scale priors as :func:`solve_gn_rays`.
+    X (P, HW, 3) is already ray-constrained (global_opt.py:298-300); K (3, 3)."""
+    XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar,
+                     lambda T: _calib_edge_systems(cfg, img_hw, K, T, edges.ii, edges.jj, edges.idx,
+                                                   XiT, w0, XjT), stats=stats)

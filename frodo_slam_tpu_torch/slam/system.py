@@ -15,9 +15,11 @@ threaded task reads a copy of the keyframe store taken under the lock (the
 store is written in place; the JAX package's immutable arrays give it that
 snapshot for free) and merges its solved poses back under the lock.
 
-Not in this slice, each raising ``NotImplementedError`` that names its
-ROADMAP item: relocalization with retrieval, the PGO (``local_opt_mode``),
-the height prior, and the calibrated tracker and backend. Each frame costs
+With a calibration (``use_calib`` and ``calib``) the tracker and the window
+solve take the calibrated pixel + log-depth residuals. Not in this slice,
+each raising ``NotImplementedError`` that names its ROADMAP item:
+relocalization with retrieval, the PGO (``local_opt_mode``) and the height
+prior. Each frame costs
 one fetch of the 20-float flags vector plus the tracker's own small fetches;
 each backend solve one small fetch per GN iteration (see global_opt.py).
 """
@@ -69,6 +71,7 @@ class SLAM:
         single_thread: bool = True,
         local_opt_mode: bool = False,
         device=None,
+        keep_keyframe_images: bool = False,
     ):
         if use_reloc or retrieval_db is not None:
             raise NotImplementedError("retrieval and relocalization are ROADMAP.md §1 item 10")
@@ -76,10 +79,6 @@ class SLAM:
             raise NotImplementedError("local_opt_mode (PGO) is ROADMAP.md §1 item 11")
         if bool(cfg.height_prior.enabled):
             raise NotImplementedError("the height prior is ROADMAP.md §1 item 11")
-        if bool(cfg.use_calib) and calib is not None:
-            raise NotImplementedError(
-                "calibrated tracking and backend (opt_pose_calib_sim3, solve_gn_calib) "
-                "are ROADMAP.md §1 item 9")
 
         self.device = resolve_device(device)
         set_f32_contract()
@@ -118,10 +117,16 @@ class SLAM:
             match_frac_thresh=float(t.match_frac_thresh),
             sigma_ray=float(t.sigma_ray),
             sigma_dist=float(t.sigma_dist),
+            sigma_pixel=float(t.sigma_pixel),
+            sigma_depth=float(t.sigma_depth),
+            pixel_border=float(t.pixel_border),
+            depth_eps=float(t.depth_eps),
             filtering_mode=str(t.filtering_mode),
             filtering_score=str(t.get("filtering_score", "median")),
-            use_calib=False,
+            use_calib=bool(cfg.use_calib) and calib is not None,
         )
+        self.K = None if calib is None else torch.as_tensor(
+            np.asarray(calib), dtype=torch.float32).to(self.device)
         self.match_cfg = tuple(sorted(dict(cfg.matching).items()))
         lo = cfg.local_opt
         self.ba_cfg = BAConfig(
@@ -135,6 +140,10 @@ class SLAM:
             sigma_odom_t=float(lo.get("sigma_odom_t", 1e-3)),
             sigma_odom_r=float(lo.get("sigma_odom_r", 1e-3)),
             sigma_scale_prior=float(lo.get("sigma_scale_prior", 0.1)),
+            sigma_pixel=float(lo.sigma_pixel),
+            sigma_depth=float(lo.sigma_depth),
+            pixel_border=float(lo.pixel_border),
+            depth_eps=float(lo.depth_eps),
         )
 
         self._n_tok = (img_hw[0] // self.model_cfg.patch_size) * (img_hw[1] // self.model_cfg.patch_size)
@@ -151,6 +160,9 @@ class SLAM:
         self.frame_count = 0
         self.loss_track_counter = 0
         self.kf_timestamps: List[float] = []
+        # host uint8 keyframe images, for the keyframe PNG dump (main.py)
+        self.keep_keyframe_images = bool(keep_keyframe_images)
+        self.kf_images: List[np.ndarray] = []
         self.atlas: List[dict] = []  # finished maps (main.py:187-239)
         self.active_kf: Optional[frame_mod.Frame] = None  # streaming KF state
         self.current_T_WC = lie.sim3_identity().numpy()
@@ -198,7 +210,8 @@ class SLAM:
         self._map_epoch += 1
         if self.store.n_size > 0:
             stamps, poses = self.keyframe_poses()
-            self.atlas.append({"timestamps": stamps, "T_WC": poses})
+            self.atlas.append({"timestamps": stamps, "T_WC": poses,
+                               "images": self.kf_images[-len(stamps):]})
             log.warning("map reset: archiving %d keyframes to atlas #%d",
                         len(stamps), len(self.atlas))
         self.store = None  # free the old ring before allocating the new one
@@ -208,6 +221,7 @@ class SLAM:
         self.mode = Mode.INIT
         self.loss_track_counter = 0
         self.kf_timestamps = []
+        self.kf_images = []
         self._pending = None
         self._pending_result = None
         self._idx_f2k = None
@@ -297,6 +311,16 @@ class SLAM:
         feat, pos = mast3r.encode_image(self.model, dev_img)
         return dev_img, feat, pos
 
+    def _capture_kf_image(self, frame: frame_mod.Frame):
+        """Fetch and denormalize the new keyframe's image into the host list
+        (the reference keeps ``uimg`` per keyframe, frame.py:17-44)."""
+        if not self.keep_keyframe_images:
+            return
+        img = frame.img[0].cpu().numpy()  # ImgNorm'd (H, W, 3)
+        if self.portrait:
+            img = np.swapaxes(img, 0, 1)
+        self.kf_images.append((np.clip(img * 0.5 + 0.5, 0.0, 1.0) * 255).astype(np.uint8))
+
     def init_tracking(self, frame: frame_mod.Frame, timestamp: float):
         """Mono-inference map init (tracker.py:137-155)."""
         X, C = decode_mono(self.model, frame.feat, frame.pos, self.img_hw)
@@ -309,6 +333,7 @@ class SLAM:
             self.active_kf = frame
             self.store = frame_mod.kf_append(self.store, frame)
         self.kf_timestamps.append(timestamp)
+        self._capture_kf_image(frame)
         self.mode = Mode.TRACKING
         self.current_T_WC = frame.T_WC.cpu().numpy()
 
@@ -375,7 +400,7 @@ class SLAM:
             prev_kf = self.active_kf
             kf_next, fused, res = track_step(
                 self.model, self.tcfg, self.match_cfg, self.img_hw,
-                self.active_kf, frame, self._idx_f2k,
+                self.active_kf, frame, self._idx_f2k, self.K,
             )
             self.active_kf = kf_next
         self._idx_f2k = res.idx_f2k
@@ -420,6 +445,7 @@ class SLAM:
             self.current_T_WC = flags[3:11].copy()
             if new_kf:
                 self.kf_timestamps.append(timestamp)
+                self._capture_kf_image(fused)
                 self._idx_f2k = None
                 odom_factor = None
                 if (odom_pose is not None and self.last_odom_pose is not None
@@ -471,7 +497,7 @@ class SLAM:
         if odom_factor is not None:
             self.backend.add_odometry_factors(*odom_factor)
 
-        win = self.backend.solve_window_rays(store, None)
+        win = self._solve_window(store)
         if win is None:
             return
         uniq, p, T_new = win
@@ -498,6 +524,14 @@ class SLAM:
                 self.active_kf = dataclasses.replace(self.active_kf, T_WC=T_new[w])
                 if self.single_thread or n_latest == idx:
                     self.current_T_WC = T_new[w].cpu().numpy()
+
+    def _solve_window(self, store):
+        """The window solve of a backend task: calibrated pixel/log-depth GN
+        with a calibration, ray alignment otherwise (vio.py:154-157).
+        Returns (uniq, p, T_new) or None."""
+        if self.tcfg.use_calib:
+            return self.backend.solve_window_calib(store, self.K)
+        return self.backend.solve_window_rays(store)
 
     def _run_backend(self, idx: int, odom_factor, pair_half=None):
         if self.single_thread:

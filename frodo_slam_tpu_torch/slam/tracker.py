@@ -1,8 +1,8 @@
 """Frame-to-keyframe tracker: dense matching + Sim(3) Gauss-Newton.
 
 Behavioral spec: ``mast3r_slam/tracker.py`` — ``FrameTracker.track``
-(:161-368), ``opt_pose_ray_dist_sim3`` (:414-465), ``solve`` (:397-412),
-``get_points_poses`` (:370-395).
+(:161-368), ``opt_pose_ray_dist_sim3`` (:414-465), ``opt_pose_calib_sim3``
+(:467-517), ``solve`` (:397-412), ``get_points_poses`` (:370-395).
 
 Like the JAX package, all HW points are kept and invalid ones get zero
 information weight (the normal equations equal the reference's gathered
@@ -22,7 +22,8 @@ import torch
 
 from ..ops import lie, matching
 from ..ops.fast_nn import fast_reciprocal_nns
-from ..ops.geometry import point_to_ray_dist
+from ..ops.geometry import (act_Sim3, constrain_points_to_ray, get_pixel_coords,
+                            point_to_ray_dist, project_calib)
 from ..ops.normal_eqs import ray_dist_drd_cols, reduce_sim3_system
 from ..ops.robust import huber
 from . import frame as frame_mod
@@ -46,6 +47,10 @@ class TrackingCfg(NamedTuple):
     match_frac_thresh: float = 0.333
     sigma_ray: float = 0.003
     sigma_dist: float = 10.0
+    sigma_pixel: float = 1.0
+    sigma_depth: float = 10.0
+    pixel_border: float = -10.0
+    depth_eps: float = 1e-6
     filtering_mode: str = "weighted_pointmap"
     filtering_score: str = "median"
     use_calib: bool = False
@@ -135,6 +140,34 @@ def opt_pose_ray_dist_sim3(cfg: TrackingCfg, Xf, Xk, T_WCf, T_WCk, Qk, valid):
     return lie.sim3_mul(T_WCk, T_CkCf), T_CkCf, ok
 
 
+def opt_pose_calib_sim3(cfg: TrackingCfg, Xf, Xk, T_WCf, T_WCk, Qk, valid, meas_k,
+                        valid_meas_k, K, img_size):
+    """Calibrated pixel + log-depth GN (tracker.py:467-517).
+
+    Xf: (HW, 3) ray-constrained frame points gathered at kf pixels; Xk the
+    kf points; meas_k (HW, 3) [u, v, log z] of the kf; K (3, 3). Each
+    iteration whitens, Huber-weights and reduces ``A^T A`` and ``-A^T b``
+    over the (HW, 3, 7) Jacobian (the JAX package's ``_solve_step``)."""
+    sqrtQ = torch.sqrt(Qk) * valid.to(Qk.dtype)
+    sqrt_info = torch.cat([(sqrtQ / cfg.sigma_pixel).expand(-1, 2), sqrtQ / cfg.sigma_depth], dim=-1)
+
+    def hg(T_CkCf):
+        Xf_Ck, dX_dT = act_Sim3(T_CkCf, Xf, jacobian=True)
+        pz, dpz_dX, valid_proj = project_calib(
+            Xf_Ck, K, img_size, jacobian=True, border=cfg.pixel_border, z_eps=cfg.depth_eps)
+        si = (valid_proj & valid_meas_k).to(sqrt_info.dtype) * sqrt_info
+        r = meas_k - pz
+        J = -(dpz_dX @ dX_dT)  # (n, 3, 7)
+        rsi = si * torch.sqrt(huber(si * r, cfg.huber_k))
+        A = (rsi[..., None] * J).reshape(-1, 7)
+        b = (rsi * r).reshape(-1)
+        return A.T @ A, -(A.T @ b), 0.5 * torch.dot(b, b)
+
+    T_CkCf0 = lie.sim3_rel(T_WCk, T_WCf)
+    T_CkCf, ok = _gn_loop_fused(cfg, T_CkCf0, hg)
+    return lie.sim3_mul(T_WCk, T_CkCf), T_CkCf, ok
+
+
 # ---------------------------------------------------------------------------
 # full tracking step
 # ---------------------------------------------------------------------------
@@ -148,10 +181,12 @@ def track_step(
     kf: Frame,
     frame: Frame,
     idx_f2k_init: Optional[torch.Tensor],
+    K: Optional[torch.Tensor] = None,
 ):
     """One tracked frame (FrameTracker.track, tracker.py:161-368): pair
     decode, matcher (prep | LM | occlusion gate + refine + score gate), then
-    :func:`track_step_post`. Returns (kf_next, fused_frame, TrackResult)."""
+    :func:`track_step_post`. Returns (kf_next, fused_frame, TrackResult).
+    ``K`` (3, 3): the calibration, needed when ``cfg.use_calib``."""
     res11, res21 = inference_mod.decode_asymmetric(
         model, frame.feat, frame.pos, kf.feat, kf.pos, img_hw)
     cold_cfg, warm_cfg = matching.split_match_cfg(dict(match_cfg))
@@ -172,7 +207,7 @@ def track_step(
         ft_matching_threshold=mc.get("ft_matching_threshold", 0.8),
         refine_impl=mc.get("refine_impl", "auto"),
     )
-    return track_step_post(cfg, img_hw, kf, frame, res11, res21, idx_f2k, valid_match_k)
+    return track_step_post(cfg, img_hw, kf, frame, res11, res21, idx_f2k, valid_match_k, K)
 
 
 @torch.no_grad()
@@ -185,12 +220,12 @@ def track_step_post(
     res21,
     idx_f2k_b: torch.Tensor,  # (1, HW) raw projective match
     valid_match_k_b: torch.Tensor,  # (1, HW, 1)
+    K: Optional[torch.Tensor] = None,
 ):
     """Everything after decode+match: gating, fnn fallback, GN, pointmap
     fusion, new-KF select (tracker.py:177-368)."""
-    if cfg.use_calib:
-        raise NotImplementedError(
-            "calibrated tracking (opt_pose_calib_sim3) is not ported yet: ROADMAP.md §1 item 9")
+    if cfg.use_calib and K is None:
+        raise ValueError("calibrated tracking needs K")
     h, w = img_hw
     hw = h * w
     out = inference_mod.asym_out(res11, res21, idx_f2k_b, valid_match_k_b, img_hw)
@@ -239,9 +274,21 @@ def track_step_post(
     accept_thresh = torch.where(used_fnn, cfg.min_match_frac_fnn, cfg.min_match_frac)
 
     # points & poses (tracker.py:370-395)
-    Xf = gathered[:, 2:5]  # frame.X_canon rows, from the fused gather
-    T_WCf_new, T_CkCf, ok = opt_pose_ray_dist_sim3(
-        cfg, Xf, kf.X_canon, frame.T_WC, kf.T_WC, Qk, valid_opt)
+    if cfg.use_calib:
+        Xf_all = constrain_points_to_ray(img_hw, frame.X_canon[None], K)[0]
+        Xk = constrain_points_to_ray(img_hw, kf.X_canon[None], K)[0]
+        zk = Xk[..., 2:3]
+        valid_meas_k = zk > cfg.depth_eps
+        logz = torch.where(valid_meas_k, torch.log(torch.where(valid_meas_k, zk, 1.0)), 0.0)
+        uv_k = get_pixel_coords(img_hw, dtype=Xk.dtype, device=Xk.device)
+        meas_k = torch.where(valid_meas_k, torch.cat([uv_k, logz], dim=-1), 0.0)
+        Xf = Xf_all[idx_f2k.long().clamp(0, hw - 1)]
+        T_WCf_new, T_CkCf, ok = opt_pose_calib_sim3(
+            cfg, Xf, Xk, frame.T_WC, kf.T_WC, Qk, valid_opt, meas_k, valid_meas_k, K, img_hw)
+    else:
+        Xf = gathered[:, 2:5]  # frame.X_canon rows, from the fused gather
+        T_WCf_new, T_CkCf, ok = opt_pose_ray_dist_sim3(
+            cfg, Xf, kf.X_canon, frame.T_WC, kf.T_WC, Qk, valid_opt)
 
     # reject the frame wholesale if matching was too sparse or GN failed
     accept = (match_frac >= accept_thresh) & ok

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``frodo_slam_tpu_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or anything of ``frodo_slam_tpu``, and its
-entry points run on the card unless asked for the CPU."""
+``chip_smoke.py``) imports ``jax`` or anything of ``frodo_slam_tpu``, no
+module of the port imports ``cv2`` or calls the library attention
+``scaled_dot_product_attention``, and its entry points run on the card
+unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -16,6 +18,11 @@ SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py"))
+
+# the dataset runner's modules, named so that a move or rename shows here
+RUNNER_MODULES = ["frodo_slam_tpu_torch.main", "frodo_slam_tpu_torch.loader",
+                  "frodo_slam_tpu_torch.data.datasets", "frodo_slam_tpu_torch.data.prefetch",
+                  "frodo_slam_tpu_torch.utils.evaluate", "frodo_slam_tpu_torch.ops.attention_kernel"]
 
 torch.set_num_threads(1)
 
@@ -36,6 +43,24 @@ def test_no_jax_import_in_source(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_opencv_and_no_library_attention_in_the_port(path):
+    """The card's machine has no OpenCV; every attention goes through the
+    port's own kernel (chip_smoke.py times the library call only)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            assert all(a.name.split(".")[0] != "cv2" for a in node.names), path.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            assert node.module.split(".")[0] != "cv2", path.name
+        elif isinstance(node, ast.Attribute):
+            assert node.attr != "scaled_dot_product_attention", f"{path.name}:{node.lineno}"
+
+
+def test_runner_modules_are_covered():
+    assert set(RUNNER_MODULES) <= set(MODULES)
 
 
 def test_importing_every_module_loads_no_jax():
@@ -67,4 +92,8 @@ def test_slam_without_device_raises_when_no_card():
     model = mast3r.init_model(mast3r.tiny_config(), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         SLAM(make_config(), model, (32, 64))
+    from frodo_slam_tpu_torch import loader
+
+    with pytest.warns(UserWarning, match="RANDOM"), pytest.raises(RuntimeError, match="CUDA"):
+        loader.load_mast3r("missing.pth", cfg=mast3r.tiny_config())
     assert resolve_device("cpu") == torch.device("cpu")

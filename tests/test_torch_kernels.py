@@ -7,13 +7,17 @@ The refine plain version is held against a scalar numpy transcription of the
 reference kernel (matching_kernels.cu:25-85); on the card the Hopper kernel
 is held against the plain version, bitwise. The ray-edge kernel is held
 against its plain version in f64 (its plain version is held against the JAX
-package in tests/test_torch_global_opt.py).
+package in tests/test_torch_global_opt.py). The attention kernel is held
+against its plain version within a bar of the output's largest magnitude
+(its plain version is held against the JAX package in
+tests/test_torch_attention.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from frodo_slam_tpu_torch.ops import attention_kernel as ak
 from frodo_slam_tpu_torch.ops import ba_reduce_kernel as brk
 from frodo_slam_tpu_torch.ops import kernel_build
 from frodo_slam_tpu_torch.ops import refine_kernel as rk
@@ -202,3 +206,51 @@ def test_ray_kernel_rejects_bad_inputs(card):
         brk.ray_edge_systems(args[0].double(), *args[1:], **kw)
     with pytest.raises(ValueError):
         brk.ray_edge_systems(*(a.half() for a in args), **kw)
+
+
+# (B, H, Nq, Nk, D): head dims 64 / 32 / 24, N in {48, 64, 100}, Nq != Nk,
+# B*H > 1, and the encoder's and a ragged shape at ViT-L width
+ATTN_SHAPES = [(2, 3, 48, 48, 64), (1, 4, 64, 100, 32), (2, 2, 100, 64, 24), (1, 2, 100, 100, 64),
+               (3, 1, 48, 64, 32), (1, 16, 768, 768, 64), (1, 12, 700, 640, 64)]
+
+
+def _attn_inputs(shape, seed):
+    B, H, Nq, Nk, D = shape
+    rng = np.random.default_rng(seed)
+    return (2.0 * rng.normal(size=(B, H, Nq, D)).astype(np.float32),
+            rng.normal(size=(B, H, Nk, D)).astype(np.float32),
+            rng.normal(size=(B, H, Nk, D)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype,bar", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_attention_kernel_matches_plain_on_card(card, shape, dtype, bar):
+    """Kernel vs plain version on the card, within ``bar`` x the output's
+    largest magnitude (bf16: P and the output rounded at other places; f32:
+    summation order); one counted launch per call."""
+    q, k, v = (torch.from_numpy(a).to(card, dtype) for a in _attn_inputs(shape, 1))
+    before = ak.flash_attention.launches
+    got = ak.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ak.flash_attention.launches == before + 1 and got.dtype == dtype
+    want = ak.flash_attention_plain(q, k, v)
+    scale = max(float(want.float().abs().max()), 1.0)
+    assert float((got.float() - want.float()).abs().max()) <= bar * scale
+
+
+@pytest.mark.cuda
+def test_attention_kernel_takes_strided_views_and_rejects_bad_inputs(card):
+    """The qkv projection's strided views go in without a copy and give the
+    contiguous result; bad types, shapes and head dims raise."""
+    q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16) for a in _attn_inputs((2, 3, 48, 48, 64), 2))
+    qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], dim=2)  # (B, N, 3, H, D)
+    views = [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+    torch.testing.assert_close(ak.flash_attention(*views), ak.flash_attention(q, k, v), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        ak.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        ak.flash_attention(q, k[:, :, :10], v)
+    big = torch.zeros((1, 1, 8, 136), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ak.flash_attention(big, big, big)

@@ -137,8 +137,9 @@ def test_unported_options_raise(weights):
             TSLAM(cfg, model, (H, W), device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSLAM(t_make_config(height_prior={"enabled": True}), model, (H, W), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSLAM(t_make_config(use_calib=True), model, (H, W), calib=np.eye(3), device="cpu")
+    # the calibrated tracker and solve are ported: a calibration now builds
+    slam = TSLAM(t_make_config(use_calib=True), model, (H, W), calib=np.eye(3), device="cpu")
+    assert slam.tcfg.use_calib and tuple(slam.K.shape) == (3, 3)
 
 
 # the success fixture of tests/test_system.py:41-54: shared heads, identical
