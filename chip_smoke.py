@@ -9,9 +9,10 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      nvcc per source, all started together;
   3. refine: the Hopper refine kernel vs its bf16 plain version at the
      dataset path's shape (1, 384, 512, 24) and at (1, 288, 512, 24),
-     radius 3, dilation 5, on two seed sets each; bitwise equal; kernel and
-     plain times (CUDA events, median of 20); the bound (bytes / 3.35 TB/s
-     vs operations / peak);
+     radius 3, dilation 5, on the three cases of tools/kernel_cases.py
+     (+-20 px seeds, colliding seeds, a smooth warp); bitwise equal; kernel
+     ms per case; the plain version's ms (CUDA events, median of 20); the
+     bound (bytes / 3.35 TB/s vs operations / peak) and the f32 FMA floor;
   4. attention: the Hopper flash-attention kernel vs its plain version at
      the model's shapes (bf16, head dim 64: the encoder at 768 and 576
      tokens, the batched decoders, the backend's pair batch, ragged N and
@@ -49,12 +50,14 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      serialized) and forces every tracked frame to a keyframe, ViT-L at
      512x384 with shared random decoders, --no-retrieval --save-as: finite
      trajectory rows, the .ply, one PNG per keyframe; per-frame and
-     per-solve ms, peak memory;
+     per-solve ms, edge rows per window, peak memory;
  12. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
 On every path (6, 10 and 11) the kernel launch counters are zeroed just
 before it and read just after; each path must launch each of its kernels.
+Its peak memory window starts after a garbage collection, and the bytes
+still allocated then are printed beside the peak.
 
 Without a card, or without the rest of the repository beside it, it exits
 nonzero before printing any result.
@@ -62,6 +65,7 @@ nonzero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
@@ -91,6 +95,8 @@ from frodo_slam_tpu_torch.slam.backend import BackendGraph  # noqa: E402
 from frodo_slam_tpu_torch.slam import tracker  # noqa: E402
 from frodo_slam_tpu_torch.slam.inference import decode_mono  # noqa: E402
 from frodo_slam_tpu_torch.slam.system import SLAM  # noqa: E402
+from frodo_slam_tpu_torch.tools import kernel_cases  # noqa: E402
+from frodo_slam_tpu_torch.tools.kernel_cases import cuda_ms, cuda_ms_queued  # noqa: E402
 from frodo_slam_tpu_torch.utils.device import set_f32_contract  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -115,43 +121,18 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def reset_peak() -> int:
+    """Start a path's peak-memory window: collect what earlier phases left
+    in reference cycles (their SLAM objects), so that the peak is the
+    path's own, and return the bytes still allocated at its start."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def emit(phase: str, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median of ``reps`` CUDA-event timings of ``fn()``."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def cuda_ms_queued(fn, reps=50, warmup=3):
-    """Device ms per call of ``fn()``: ``reps`` calls queued behind a spin
-    kernel, so the events bracket back-to-back device work and not the
-    host's submission rate (for kernels shorter than their launch)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2e8))  # ~0.1 s: the host queues every call meanwhile
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def phase_device():
@@ -169,28 +150,12 @@ def phase_build():
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         results = list(pool.map(lambda mod: mod.build(), KERNELS))
     for mod, (seconds, log) in zip(KERNELS, results):
-        emit("ptxas", kernel=mod.__name__, seconds=round(seconds, 3),
-             log=[ln for ln in log.splitlines() if "registers" in ln or "spill" in ln])
+        lines = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        emit("ptxas", kernel=mod.__name__, seconds=round(seconds, 3), log=lines)
+        # a nonzero stack frame: per-thread arrays or spills in local memory
+        if any("stack frame" in ln and not ln.strip().startswith("0 bytes") for ln in lines):
+            raise AssertionError(f"{mod.__name__}: a kernel uses local memory: {lines}")
     emit("build", seconds=round(time.perf_counter() - t0, 3))
-
-
-def _refine_inputs(seed, h=288, w=512, f=24, collide=False):
-    """Descriptors at the main path's refine shape; query k is a noisy copy
-    of D11 at its own pixel. Seeds: that pixel plus a random +-20 px offset,
-    or (``collide``) snapped to a 4x4 grid so 16 queries share each seed."""
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    D11 = torch.randn((1, h, w, f), generator=g, device=DEV)
-    D11 = D11 / D11.norm(dim=-1, keepdim=True)
-    n = h * w
-    grid = torch.stack(torch.meshgrid(torch.arange(w, device=DEV), torch.arange(h, device=DEV),
-                                      indexing="xy"), -1).reshape(1, n, 2)
-    D21 = D11.reshape(1, n, f) + 0.05 * torch.randn((1, n, f), generator=g, device=DEV)
-    if collide:
-        p1 = torch.div(grid, 4, rounding_mode="floor") * 4
-    else:
-        p1 = grid + torch.randint(-20, 21, (1, n, 2), generator=g, device=DEV)
-    lim = torch.tensor([w - 1, h - 1], device=DEV)
-    return D11, D21, torch.minimum(p1.clamp(min=0), lim).to(torch.int32)
 
 
 # the dataset path's grid (512x384 frames) first, then the 288x512 paths
@@ -198,10 +163,13 @@ REFINE_SHAPES = [(384, 512), (288, 512)]
 
 
 def _refine_at(h, w, radius=3, dmax=5):
+    """Every case of ``tools/kernel_cases.py`` at one grid: bitwise equal to
+    the bf16 plain version and kernel ms; the plain version's ms and the
+    bound on identity_pm20."""
     max_err = 0.0
-    probes = 0
-    cases = {"identity_pm20": _refine_inputs(0, h, w), "collisions": _refine_inputs(1, h, w, collide=True)}
-    for name, (D11, D21, p1) in cases.items():
+    per_case = {}
+    for seed, name in enumerate(kernel_cases.REFINE_CASES):
+        D11, D21, p1 = kernel_cases.refine_case(name, h, w, seed, DEV)
         pk, sk = refine_kernel.refine_matches(D11, D21, p1, radius, dmax)
         torch.cuda.synchronize()
         pp, sp, nprobe = refine_kernel.refine_matches_plain(D11, D21, p1, radius, dmax,
@@ -209,24 +177,31 @@ def _refine_at(h, w, radius=3, dmax=5):
         equal = bool(torch.equal(pk, pp)) and bool(torch.equal(sk, sp))
         err = float((sk - sp).abs().max())
         uniq = int(torch.unique(p1[0, :, 0] + D11.shape[2] * p1[0, :, 1]).numel())
-        emit("refine_check", shape=[h, w], case=name, equal=equal, max_abs_err=err, unique_seeds=uniq,
-             moved=float((pk != p1).any(-1).float().mean()))
+        r = dict(shape=[h, w], case=name, equal=equal, max_abs_err=err, unique_seeds=uniq,
+                 moved=float((pk != p1).any(-1).float().mean()), probes=int(nprobe),
+                 ms=cuda_ms(lambda: refine_kernel.refine_matches(D11, D21, p1, radius, dmax)))
+        emit("refine_check", **r)
         if not equal:
             raise AssertionError(f"refine kernel != plain on {name} at {h}x{w}")
         max_err = max(max_err, err)
-        probes = int(nprobe) if name == "identity_pm20" else probes
-    D11, D21, p1 = cases["identity_pm20"]
-    ms = cuda_ms(lambda: refine_kernel.refine_matches(D11, D21, p1, radius, dmax))
+        per_case[name] = r
+    D11, D21, p1 = kernel_cases.refine_case("identity_pm20", h, w, 0, DEV)
     plain_ms = cuda_ms(lambda: refine_kernel.refine_matches_plain(D11, D21, p1, radius, dmax))
     n = p1.shape[1]
+    probes = per_case["identity_pm20"]["probes"]
     # each f32 input read once, each output written once
     nbytes = D11.numel() * 4 + D21.numel() * 4 + p1.numel() * 4 + n * 2 * 4 + n * 4
     # the dots this input needs: 2 ops per channel per in-image probe, over
-    # bf16 values (the kernel's contract), at the bf16 peak
+    # bf16 values (the kernel's contract), at the bf16 peak; the dot must stay
+    # a sequential f32 fmaf to be bitwise, so its floor on FMA is also given
     ops = 2 * D11.shape[-1] * probes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-    out = dict(shape=[h, w], ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops, probes=probes,
+    out = dict(shape=[h, w], ms=per_case["identity_pm20"]["ms"], ms_smooth=per_case["smooth_warp"]["ms"],
+               ms_collisions=per_case["collisions"]["ms"],
+               plain_ms=plain_ms, bytes=nbytes, ops=ops, probes=probes,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+               fma_floor_ms=ops / F32_OPS_PER_S * 1e3,
+               fma_floor_ms_smooth=2 * D11.shape[-1] * per_case["smooth_warp"]["probes"] / F32_OPS_PER_S * 1e3,
                max_abs_err=max_err)
     emit("refine_time", **out)
     return out
@@ -241,11 +216,13 @@ def phase_refine():
 # ---------------------------------------------------------------------------
 
 # (B, H, Nq, Nk, D, dtype): the encoder at 512x384 and 288x512, the two
-# decoders batched, a ragged N, the backend's pair batch; f32 at head dim 32
+# decoders batched, a ragged N, the backend's pair batch; f32 at head dims
+# 32 and 24; the B = 1 decoder passes at 288x512 and 512x384
 ATTN_SHAPES = [(1, 16, 768, 768, 64, torch.bfloat16), (2, 12, 768, 768, 64, torch.bfloat16),
                (1, 16, 576, 576, 64, torch.bfloat16), (1, 16, 700, 700, 64, torch.bfloat16),
                (4, 12, 768, 768, 64, torch.bfloat16), (1, 12, 768, 640, 64, torch.bfloat16),
-               (2, 2, 96, 96, 32, torch.float32), (1, 2, 100, 77, 24, torch.float32)]
+               (2, 2, 96, 96, 32, torch.float32), (1, 2, 100, 77, 24, torch.float32),
+               (1, 12, 576, 576, 64, torch.bfloat16), (1, 12, 768, 768, 64, torch.bfloat16)]
 def attention_bound(B, H, Nq, Nk, D, dtype):
     """Least time for one call: 4 B H Nq Nk D operations (two products) at
     the type's peak vs q, k, v read once and o written once over the memory
@@ -267,10 +244,7 @@ def phase_attention():
     fa = attention_kernel.flash_attention
     out = []
     for i, (B, H, Nq, Nk, D, dt) in enumerate(ATTN_SHAPES):
-        g = torch.Generator(device=DEV).manual_seed(100 + i)
-        q = (2.0 * torch.randn((B, H, Nq, D), generator=g, device=DEV)).to(dt)
-        k = torch.randn((B, H, Nk, D), generator=g, device=DEV).to(dt)
-        v = torch.randn((B, H, Nk, D), generator=g, device=DEV).to(dt)
+        q, k, v = kernel_cases.attention_case(B, H, Nq, Nk, D, dt, 100 + i, DEV)
         before = fa.launches
         ok = fa(q, k, v)
         torch.cuda.synchronize()
@@ -345,7 +319,7 @@ def phase_main(n_frames=12):
     init_s = time.perf_counter() - t0
     slam = SLAM(make_config(), model, (h, w), use_backend=False)
     frames = smooth_random_frames(n_frames, h, w)
-    torch.cuda.reset_peak_memory_stats()
+    at_start = reset_peak()
     counts = dict(ok=0, new_kf=0, fnn=0, reset=0)
     ms = []
     poses = []
@@ -367,7 +341,7 @@ def phase_main(n_frames=12):
     peak = torch.cuda.max_memory_allocated()
     emit("main", frames=n_frames, model_init_s=round(init_s, 3), frame_ms=[round(x, 3) for x in ms],
          mean_ms_after_first=statistics.mean(ms[1:]), median_ms_after_first=statistics.median(ms[1:]),
-         max_memory_allocated=peak, counts=counts, launches=launches,
+         max_memory_allocated=peak, allocated_at_start=at_start, counts=counts, launches=launches,
          store_n_total=slam.store.n_total, atlas=len(slam.atlas))
     assert all(p.shape == (8,) and np.isfinite(p).all() for p in poses)
     assert launches["refine_matches"] > 0, "the main path never launched the refine kernel"
@@ -587,8 +561,7 @@ def _backend_run(model, frames, single_thread, extra_pairs):
                 single_thread=single_thread)
     rec = []
     _instrument(slam, rec, timed=single_thread)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    at_start = reset_peak()
     zero_counts()
     ms, flags = [], []
     t_run = time.perf_counter()
@@ -618,7 +591,8 @@ def _backend_run(model, frames, single_thread, extra_pairs):
                gn_iters=[r["iters"] for r in solves], ray_launches_per_solve=[r["ray_launches"] for r in solves],
                edge_rows=[r["edge_rows"] for r in solves], window_poses=[r["poses"] for r in solves],
                pairs=len(slam.backend._pairs), n_odom=slam.backend._n_odom, launches=launches,
-               max_memory_allocated=torch.cuda.max_memory_allocated(), joined=joined,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), allocated_at_start=at_start,
+               joined=joined,
                backend_task_failures=failures.records, extra_pairs=extra_pairs,
                ok_new_kf=[sum(f[0] for f in flags), sum(f[1] for f in flags)])
     emit("backend_main", **out)
@@ -677,7 +651,7 @@ def phase_dataset_main(n_images=24, work=None):
                              + [f"{k}: {json.dumps(v)}" for k, v in FORCE_KEYFRAMES.items()]) + "\n")
     args = types.SimpleNamespace(dataset=str(seq), config=str(cfg), calib=None, save_as="chip_smoke",
                                  no_viz=True, viz=False, weights=None, no_retrieval=True, max_frames=None)
-    rec = dict(frame_ms=[], solve_ms=[], gn_iters=[], ray_solves=0)
+    rec = dict(frame_ms=[], solve_ms=[], gn_iters=[], edge_rows=[], ray_solves=0)
     real = dict(grab=SLAM.grab_rgb, calib=BackendGraph.solve_window_calib,
                 rays=BackendGraph.solve_window_rays)
 
@@ -694,6 +668,7 @@ def phase_dataset_main(n_images=24, work=None):
         torch.cuda.synchronize()
         rec["solve_ms"].append((time.perf_counter() - t) * 1e3)
         rec["gn_iters"].append(self.last_solve["iters"] if out is not None else 0)
+        rec["edge_rows"].append(self.last_solve["edge_rows"] if out is not None else 0)
         return out
 
     def solve_rays(self, *a, **k):
@@ -706,8 +681,7 @@ def phase_dataset_main(n_images=24, work=None):
     os.environ["FRODO_RANDOM_SHARE_DECODER"] = "1"  # identical frames track (loader.py)
     try:
         os.chdir(work)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        at_start = reset_peak()
         zero_counts()
         t0 = time.perf_counter()
         out = runner.run(args, device=DEV)
@@ -731,11 +705,11 @@ def phase_dataset_main(n_images=24, work=None):
     r = dict(frames=len(frame_ms), keyframes=int(rows.shape[0]), image_hw=[384, 512], run_s=run_s,
              frame_ms=[round(x, 3) for x in frame_ms],
              median_frame_ms_after_first=statistics.median(frame_ms[1:]),
-             solve_ms=[round(x, 3) for x in solve_ms], gn_iters=rec["gn_iters"],
+             solve_ms=[round(x, 3) for x in solve_ms], gn_iters=rec["gn_iters"], edge_rows=rec["edge_rows"],
              median_solve_ms=statistics.median(solve_ms) if solve_ms else None,
              ray_solves=rec["ray_solves"],
-             max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
-             ply_vertices=n_vertex, keyframe_pngs=len(pngs))
+             max_memory_allocated=torch.cuda.max_memory_allocated(), allocated_at_start=at_start,
+             launches=launches, ply_vertices=n_vertex, keyframe_pngs=len(pngs))
     emit("dataset_main", **r)
     assert rows.shape == (n_images // 2, 8) and np.isfinite(rows).all(), rows.shape
     assert len(pngs) == rows.shape[0] and n_vertex > 0
@@ -779,11 +753,13 @@ def main():
         "equal_to_plain": True,
         "max_abs_err": rt["max_abs_err"],
         "ms": rt["ms"],
+        "ms_smooth": rt["ms_smooth"],
         "plain_ms": rt["plain_ms"],
         "bound_ms": rt["bound_ms"],
         "bound_by": rt["bound_by"],
         "library_ms": None,
-        "per_shape": {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        "per_shape": {k: {f: v[f] for f in ("ms", "ms_smooth", "ms_collisions", "plain_ms", "bound_ms",
+                                            "bound_by")}
                       for k, v in refine.items()},
     }, {
         "name": "ray_edge_systems",

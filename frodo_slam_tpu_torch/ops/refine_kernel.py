@@ -13,19 +13,20 @@ driven by ``refine_matches_fused``. The TPU needed the scatter-into-a-plane,
 shifted-dot and pull-relocation form only because Mosaic lowers neither a
 value scatter nor a per-lane gather; its collision truncation (a query that
 loses a contested pixel stops refining) is a layout artifact that this
-kernel does not reproduce. Here the two become ONE per-query kernel
-(``csrc/refine_matches.cu``): one thread per query, the query row in 24 f32
-registers, each probe one 48-byte bf16 row read as three 16-byte loads.
+kernel does not reproduce. Here the two become ONE per-query search
+(``csrc/refine_matches.cu``): a CTA of 384 threads takes a 2-D tile of the
+query raster (32 x 12; 384 consecutive queries when n != h * w, see
+:func:`refine_tile_plan`), one thread per query with its row in 24 f32
+registers; neighbouring queries probe overlapping windows, which L1 then
+serves.
 
-What bounds it: at 288x512 a cold refine reads 5 levels x 49 probes x 48 B
-per query, ~1.7 GB of row reads for 147,456 queries, but the descriptor image
-is only 7 MB in bf16 and stays in the 50 MB L2, so device memory sees each
-input about once (the bound: ~31 MB of f32 inputs and outputs at 3.35 TB/s).
-What the design does about it: bf16 rows halve the bytes per probe, 16-byte
-vector loads keep each probe at three L2 transactions, and the sequential
-fmaf dot needs no shared memory or synchronisation. It makes no use of the
-tensor cores, TMA or reuse of neighbouring queries' windows in shared memory;
-that is work for a later change.
+What bounds it: at 384x512 a cold refine does 5 levels x 49 probes x 24
+f32 FMAs per query, 2.3 GFLOP (0.035 ms at 67 TFLOP/s: the dot stays a
+sequential f32 fmaf, so the tensor cores cannot take it), against ~38 MB of
+f32 inputs and outputs (0.012 ms at 3.35 TB/s). Its probes read 2.3 GB of
+48-byte rows, which queries taken in raster order, one probe's loads in
+flight at a time, would fetch from L2; 2-D tiles let L1 serve most of
+them.
 
 Dispatch: a CPU tensor runs :func:`refine_matches_plain` (bf16); a CUDA
 tensor launches the kernel or raises. Nothing falls back.
@@ -93,6 +94,26 @@ def refine_matches_plain(D11: torch.Tensor, D21: torch.Tensor, p1: torch.Tensor,
     return (p_new, max_score, probes) if count_probes else (p_new, max_score)
 
 
+TILE_THREADS = 384  # queries per CTA
+MAX_RADIUS = 3  # the kernel's radius is a template parameter: 0..3
+
+
+def refine_tile_plan(h: int, w: int, n: int) -> dict:
+    """The kernel's query tiling. When n == h * w the queries are D11's
+    raster (``ops/matching.py``): the query grid is w wide and a CTA takes a
+    32 x 12 tile of it. Otherwise a CTA takes 384 consecutive queries (a
+    1-D tile). Returns the grid width ``gw``, tile width and height and the
+    CTA grid (x, y) per batch element."""
+    if n == h * w:
+        gw, tile_w = w, 32
+    else:
+        gw, tile_w = max(n, 1), TILE_THREADS
+    tile_h = TILE_THREADS // tile_w
+    gh = -(-n // gw)
+    return dict(gw=gw, tile_w=tile_w, tile_h=tile_h,
+                grid=(-(-gw // tile_w), -(-gh // tile_h)))
+
+
 def library_path():
     return kernel_build.library_path(_SRC)
 
@@ -107,7 +128,7 @@ def _library() -> ctypes.CDLL:
     build()
     lib = ctypes.CDLL(str(library_path()))
     fn = lib.refine_matches_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -120,8 +141,9 @@ def _aligned_bf16(x: torch.Tensor) -> torch.Tensor:
 def refine_matches(D11: torch.Tensor, D21: torch.Tensor, p1: torch.Tensor,
                    radius: int = 3, dilation_max: int = 5):
     """Refine on the card (CUDA tensors) or with the bf16 plain version (CPU
-    tensors). D11: (b, h, w, 24); D21: (b, n, 24); p1: (b, n, 2) int.
-    Returns (p1_new (b, n, 2) int32, max_scores (b, n) f32)."""
+    tensors). D11: (b, h, w, 24); D21: (b, n, 24); p1: (b, n, 2) int;
+    radius 0..3 on the card. Returns (p1_new (b, n, 2) int32, max_scores
+    (b, n) f32)."""
     if D11.device.type == "cpu":
         return refine_matches_plain(D11, D21, p1, radius, dilation_max, torch.bfloat16)
     if D11.device.type != "cuda":
@@ -136,21 +158,25 @@ def refine_matches(D11: torch.Tensor, D21: torch.Tensor, p1: torch.Tensor,
         raise ValueError(f"refine_matches: p1 {tuple(p1.shape)} != {(b, n, 2)}")
     if not (D21.device == p1.device == D11.device):
         raise ValueError("refine_matches: inputs on different devices")
-    if radius < 0 or dilation_max < 0:
-        raise ValueError("refine_matches: radius and dilation_max must be >= 0")
+    if not 0 <= radius <= MAX_RADIUS or dilation_max < 0:
+        raise ValueError(f"refine_matches: radius must be 0..{MAX_RADIUS} and dilation_max >= 0")
+    if 3 * h * w >= 2 ** 31:
+        raise ValueError(f"refine_matches: a {h}x{w} image is too large for the kernel's offsets")
     d11 = _aligned_bf16(D11)
     d21 = _aligned_bf16(D21)
     pin = p1.to(torch.int32).contiguous()
     p_out = torch.empty((b, n, 2), dtype=torch.int32, device=D11.device)
     scores = torch.empty((b, n), dtype=torch.float32, device=D11.device)
+    plan = refine_tile_plan(h, w, n)
     lib = _library()
     with torch.cuda.device(D11.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.refine_matches_launch(
             d11.data_ptr(), d21.data_ptr(), pin.data_ptr(), p_out.data_ptr(),
-            scores.data_ptr(), b, h, w, n, radius, dilation_max, stream)
+            scores.data_ptr(), b, h, w, n,
+            plan["gw"], plan["tile_w"], radius, dilation_max, stream)
     if err != 0:
-        raise RuntimeError(f"refine_matches kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"refine_matches kernel launch failed: error {err}")
     refine_matches.launches += 1
     return p_out, scores
 

@@ -7,7 +7,7 @@ smooth random 288x512 frames, default config, backend and reloc off) twice:
 
 1. under ``torch.profiler``: kernel launches per frame, device busy share of
    the window (summed kernel time / host wall time), top kernels by device
-   time;
+   time, and the hand-written kernels' ms and calls per frame;
 2. with every stage wrapped in ``torch.cuda.synchronize()`` + host clock:
    encode, pair decode + heads, matcher LM (prep + iter_proj), matcher rest
    (occlusion gate + refine + score gate; the refine alone too), fnn
@@ -35,6 +35,10 @@ from ..ops import matching
 from ..slam import inference as inference_mod
 from ..slam import tracker
 from ..slam.system import SLAM
+
+
+# the hand-written kernels' function names (csrc/), reported on their own
+OWN_KERNELS = ("flash_fwd", "refine_", "ray_edge")
 
 
 def _sync(dev):
@@ -77,6 +81,8 @@ def profile_kernels(args):
         if dt > 0:
             top.append((dt, a.key, a.count))
     top.sort(reverse=True)
+    own = {k: {"ms_per_frame": dt / 1e3 / args.frames, "calls_per_frame": c / args.frames}
+           for dt, k, c in top if any(name in k for name in OWN_KERNELS)}
     print(json.dumps({
         "profile": "kernels", "frames": args.frames, "wall_ms_per_frame": wall_us / 1e3 / args.frames,
         "kernel_launches_per_frame": n_kernels / args.frames,
@@ -84,6 +90,7 @@ def profile_kernels(args):
         "device_busy_share": kernel_us / wall_us,
         "top": [{"kernel": k[:90], "ms_per_frame": dt / 1e3 / args.frames, "calls_per_frame": c / args.frames}
                 for dt, k, c in top[:15]],
+        "own_kernels": own,
     }), flush=True)
 
 

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``frodo_slam_tpu_torch`` (nor
-``chip_smoke.py``) imports ``jax`` or anything of ``frodo_slam_tpu``, no
+``chip_smoke.py``, ``kernel_ab.py``) imports ``jax`` or anything of ``frodo_slam_tpu``, no
 module of the port imports ``cv2`` or calls the library attention
 ``scaled_dot_product_attention``, and its entry points run on the card
 unless asked for the CPU."""
@@ -14,7 +14,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "frodo_slam_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
     for p in PKG.rglob("*.py"))

@@ -5,7 +5,9 @@ card-only tests also run where JAX is not installed):
 
 The refine plain version is held against a scalar numpy transcription of the
 reference kernel (matching_kernels.cu:25-85); on the card the Hopper kernel
-is held against the plain version, bitwise. The ray-edge kernel is held
+is held against the plain version, bitwise, on random and smooth-warp seeds,
+tiles at the border, tiles whose seeds spread apart, two batch elements,
+1-D tiles, radius 1-3 and dilation 0-5. The ray-edge kernel is held
 against its plain version in f64 (its plain version is held against the JAX
 package in tests/test_torch_global_opt.py). The attention kernel is held
 against its plain version within a bar of the output's largest magnitude
@@ -21,6 +23,7 @@ from frodo_slam_tpu_torch.ops import attention_kernel as ak
 from frodo_slam_tpu_torch.ops import ba_reduce_kernel as brk
 from frodo_slam_tpu_torch.ops import kernel_build
 from frodo_slam_tpu_torch.ops import refine_kernel as rk
+from frodo_slam_tpu_torch.tools import kernel_cases
 
 torch.set_num_threads(1)
 
@@ -102,6 +105,48 @@ def test_library_path_tracks_source_and_flags():
     assert "--use_fast_math" not in rk.NVCC_FLAGS
 
 
+@pytest.mark.parametrize("h,w", [(24, 32), (48, 64)])
+@pytest.mark.parametrize("case", kernel_cases.REFINE_CASES)
+def test_refine_cases_are_what_they_say(case, h, w):
+    """The seeded cases that chip_smoke, kernel_ab and the card tests run:
+    the kernel's shapes and types, unit descriptors, in-image seeds, the
+    same case from the same seed; identity_pm20's seeds within 20 px of
+    their own pixel, collisions' on a 4-pixel lattice (16 queries a seed),
+    smooth_warp's within 2 px of a 1 degree, 1% scale, (3, -2) px warp of
+    it (plus rounding)."""
+    D11, D21, p1 = kernel_cases.refine_case(case, h, w, 3, "cpu")
+    n = h * w
+    assert D11.shape == (1, h, w, 24) and D21.shape == (1, n, 24) and p1.shape == (1, n, 2)
+    assert p1.dtype == torch.int32
+    torch.testing.assert_close(D11.norm(dim=-1), torch.ones(1, h, w))
+    assert (p1 >= 0).all() and (p1[..., 0] < w).all() and (p1[..., 1] < h).all()
+    for a, b in zip((D11, D21, p1), kernel_cases.refine_case(case, h, w, 3, "cpu")):
+        assert torch.equal(a, b)
+    grid = np.stack([np.arange(n) % w, np.arange(n) // w], -1)
+    off = np.abs(p1[0].numpy() - grid).max(-1)
+    if case == "identity_pm20":
+        assert off.max() <= 20 and off.max() > 10
+    elif case == "collisions":
+        assert (p1 % 4 == 0).all() and off.max() <= 3
+        assert torch.unique(p1[0, :, 1] * w + p1[0, :, 0]).numel() == n // 16
+    else:
+        warp = np.hypot(w / 2, h / 2) * abs(1.01 * np.exp(1j * np.radians(1.0)) - 1)
+        assert off.max() <= warp + 3 + 2 + 1
+
+
+@pytest.mark.parametrize("h,w", [(24, 32), (48, 64)])
+def test_smooth_warp_is_solved_by_the_refine(h, w):
+    """smooth_warp stands in for the LM projection of a rigid scene: from
+    its seeds the refine reaches each query's true match (a score near 1,
+    the seeds' own near 0.9) for nearly every query."""
+    D11, D21, p1 = kernel_cases.refine_case("smooth_warp", h, w, 0, "cpu")
+    _, scores = rk.refine_matches_plain(D11, D21, p1, radius=3, dilation_max=5)
+    lin = (p1[0, :, 1] * w + p1[0, :, 0]).long()
+    at_seed = (D11.reshape(-1, 24)[lin].bfloat16().float() * D21[0].bfloat16().float()).sum(-1)
+    assert float(at_seed.median()) < 0.95
+    assert float(scores.median()) > 0.99 and float((scores > 0.9).float().mean()) > 0.95
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -126,6 +171,66 @@ def test_refine_kernel_equals_plain_on_card(card, radius, dilation_max, jitter, 
     assert torch.equal(sk, sp)
 
 
+def _smooth_inputs(card, seed, h, w, b=1, far_every=0):
+    """Smooth-warp refine inputs (``kernel_cases.refine_case``): ``b`` of
+    them (seeds ``seed``, ``seed + 1``, ...) stacked into one batch.
+    ``far_every``: every such query's seed also moves 40 px right and down
+    (clipped to the image), so a tile's queries probe windows far apart."""
+    cases = [kernel_cases.refine_case("smooth_warp", h, w, seed + i, card) for i in range(b)]
+    D11, D21, p1 = (torch.cat(x) for x in zip(*cases))
+    if far_every:
+        p1[:, ::far_every] += 40
+        p1 = torch.minimum(p1, torch.tensor([w - 1, h - 1], dtype=p1.dtype, device=card))
+    return D11, D21, p1
+
+
+def _refine_on_card(D11, D21, p1, radius, dilation_max):
+    """Kernel vs bf16 plain version: bitwise, one counted launch."""
+    before = rk.refine_matches.launches
+    pk, sk = rk.refine_matches(D11, D21, p1, radius=radius, dilation_max=dilation_max)
+    torch.cuda.synchronize()
+    assert rk.refine_matches.launches == before + 1
+    pp, sp = rk.refine_matches_plain(D11, D21, p1, radius=radius, dilation_max=dilation_max)
+    assert torch.equal(pk, pp)
+    assert torch.equal(sk, sp)
+    return pk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(96, 128), (384, 512)])
+def test_refine_kernel_smooth_warp_on_card(card, h, w):
+    """The main path's kind of seeds: bitwise equal."""
+    _refine_on_card(*_smooth_inputs(card, 11, h, w), 3, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["border", "spread", "batch2", "one_d"])
+def test_refine_kernel_tiles_on_card(card, case):
+    """Tiles at the image border (seeds pushed onto the edges), tiles whose
+    seeds spread apart (every third seed 40 px away), two batch elements,
+    and 1-D tiles (n != h * w): all bitwise equal."""
+    h, w = 80, 104
+    if case == "border":
+        D11, D21, p1 = _smooth_inputs(card, 12, h, w)
+        p1[0, ::2, 0] = torch.where(p1[0, ::2, 0] < w // 2, 0, w - 1).to(p1.dtype)
+        p1[0, 1::2, 1] = torch.where(p1[0, 1::2, 1] < h // 2, 0, h - 1).to(p1.dtype)
+    elif case == "spread":
+        D11, D21, p1 = _smooth_inputs(card, 13, h, w, far_every=3)
+    elif case == "batch2":
+        D11, D21, p1 = _smooth_inputs(card, 14, h, w, b=2)
+    else:
+        D11, D21, p1 = _smooth_inputs(card, 15, h, w)
+        D21, p1 = D21[:, :3001], p1[:, :3001]
+    _refine_on_card(D11, D21, p1, 3, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("dilation_max", [0, 1, 2, 3, 4, 5])
+def test_refine_kernel_radius_and_dilation_on_card(card, radius, dilation_max):
+    _refine_on_card(*_smooth_inputs(card, 20 + radius, 40, 72), radius, dilation_max)
+
+
 @pytest.mark.cuda
 def test_refine_kernel_rejects_bad_inputs(card):
     D11, D21, p1 = (torch.from_numpy(a).to(card) for a in _inputs(8, 8, 8))
@@ -135,6 +240,8 @@ def test_refine_kernel_rejects_bad_inputs(card):
         rk.refine_matches(D11, D21, p1[:, :5])
     with pytest.raises(ValueError):
         rk.refine_matches(D11, D21.cpu(), p1)
+    with pytest.raises(ValueError):
+        rk.refine_matches(D11, D21, p1, radius=4)  # the radius is a template: 0..3
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +344,28 @@ def test_attention_kernel_matches_plain_on_card(card, shape, dtype, bar):
     want = ak.flash_attention_plain(q, k, v)
     scale = max(float(want.float().abs().max()), 1.0)
     assert float((got.float() - want.float()).abs().max()) <= bar * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [24, 32, 64, 20, 100, 128])
+def test_attention_kernel_qkv_views_ragged_on_card(card, D):
+    """bf16 at head dims 24/32/64 (one 64-wide half), 100/128 (two halves)
+    and 20 (rows TMA cannot read: the padded copy), q, k, v as strided views
+    of one (B, N, 3, H, D) buffer, a ragged N = 700 and Nq != Nk: within the
+    bar of the plain version, and equal to the same call on contiguous
+    copies."""
+    B, H, Nq, Nk = 2, 3, 700, 640
+    rng = np.random.default_rng(D)
+    qkv = torch.from_numpy(rng.normal(size=(B, Nq, 3, H, D)).astype(np.float32)).to(card, torch.bfloat16)
+    q = qkv[:, :, 0].transpose(1, 2)
+    k, v = (qkv[:, :Nk, i].transpose(1, 2) for i in (1, 2))
+    got = ak.flash_attention(q, k, v)
+    again = ak.flash_attention(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    want = ak.flash_attention_plain(q, k, v)
+    scale = max(float(want.float().abs().max()), 1.0)
+    assert float((got.float() - want.float()).abs().max()) <= 1e-2 * scale
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
