@@ -26,11 +26,14 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      12 synthetic 288x512 frames, backend and relocalization off; per-frame
      ms, peak memory, outcome counts;
   7. ray_reduce: the Hopper ray-edge kernel vs its plain version at
-     N = 147,456 points per edge (and one N off the chunk size), E edges in
-     {16, 32, 128, 512}, zero-weight rows included: f32 kernel vs f64 plain
-     within 1e-4 of each edge's largest entry, f64 kernel within 1e-10; two
-     calls bitwise equal; kernel, f64 kernel and plain times (median of 20)
-     beside the bound;
+     N = 147,456 points per edge on the window cases of tools/kernel_cases.py
+     (16 rows with 8 or 16 live, 32 with 22; stale inactive rows) and the
+     all-active E in {16, 32, 128, 512} (jj = e mod 16), plus two N off the
+     tile: f32 kernel vs f64 plain within 1e-4 of each live edge's largest
+     entry, f64 kernel within 1e-10; inactive rows exactly 0; two calls
+     bitwise equal; device ms (queued calls) and single-call ms, f64 device
+     ms and plain ms beside the bound of the work the inputs need (A live
+     rows, D distinct frames);
   8. backend_tiny: SLAM(use_backend=True) with odometry at tiny_config on
      the card vs the same on the CPU: flags equal, keyframe poses atol 1e-4;
   9. calib_tiny: the same with a calibration (calibrated tracker and window
@@ -355,85 +358,85 @@ def phase_main(n_frames=12):
 # ---------------------------------------------------------------------------
 
 RAY_KW = dict(sigma_ray=0.003, sigma_dist=10.0)
+# the window cases of tools/kernel_cases.py (the shapes backend_main's
+# solves make), the all-active cases, and two N off the 512-point tile: one
+# a multiple of 4 points (bulk copies, a ragged last tile), one not (rows
+# not 16-byte aligned: the ring filled by the producer's own loads)
+RAY_CASES = ([(c, kernel_cases.RAY_N) for c in kernel_cases.RAY_WINDOW_CASES + kernel_cases.RAY_ALL_ACTIVE_CASES]
+             + [("win16_4p", kernel_cases.RAY_N - 332), ("all16", kernel_cases.RAY_N - 333)])
 
 
-def _ray_inputs(seed, E, N):
-    """A seeded device world: per-edge relative Sim(3)s near identity,
-    points around z = 5, weights in [0, 2) with a zeroed tenth of every edge
-    and one fully masked edge."""
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    xi = 0.05 * torch.randn((E, 7), generator=g, device=DEV, dtype=torch.float64)
-    T = lie.sim3_exp(xi)
-    sR = T[:, 7, None, None] * lie.quat_to_R(T[:, 3:7])
-    scal = torch.cat([sR.reshape(E, 9), T[:, :3]], dim=-1).float()
-    off = torch.tensor([0.0, 0.0, 5.0], device=DEV)[None, :, None]
-    XiT = torch.randn((E, 3, N), generator=g, device=DEV) + off
-    XjT = XiT + 0.05 * torch.randn((E, 3, N), generator=g, device=DEV)
-    w0 = 2 * torch.rand((E, N), generator=g, device=DEV)
-    w0[:, : N // 10] = 0.0
-    w0[-1] = 0.0
-    return scal, XiT, XjT, w0
-
-
-def _rel_err(got, want):
-    """Largest per-edge |got - want| over that edge's largest |entry|."""
+def _rel_err(got, want, live):
+    """Largest per-edge |got - want| over that edge's largest |entry|, over
+    the live edges."""
     E = want.shape[0]
     scale = want.reshape(E, -1).abs().amax(1).clamp(min=1e-300)
-    return float(((got.double() - want).reshape(E, -1).abs().amax(1) / scale).max())
+    return float(((got.double() - want).reshape(E, -1).abs().amax(1) / scale)[live].max())
 
 
-def ray_bound(E, N, nbytes_per_scalar=4):
-    """Least time for one call: inputs read once (Xi, Xj, w0 per point; the
-    12 scalars per edge), outputs written once (B, g), vs the operations at
-    the f32 (or f64) peak outside the tensor cores."""
-    nbytes = nbytes_per_scalar * (E * N * 7 + E * 12 + E * 56)
-    ops = E * N * ba_reduce_kernel.FLOPS_PER_POINT
-    peak = F32_OPS_PER_S if nbytes_per_scalar == 4 else F64_OPS_PER_S
+def ray_bound(A, D, E, N, itemsize=4):
+    """Least time for one call, for the work these inputs need: each live
+    row's Xi and w0 read once (4 scalars a point), each distinct frame its
+    live rows read once (3), the 12 scalars of every row, B and g written
+    (56), vs A x N x FLOPS_PER_POINT operations at the f32 (or f64) peak
+    outside the tensor cores. ``all_rows_bound_ms``: the two-pass kernel's
+    form, every row streamed with its own Xj, E x N x 7 scalars."""
+    nbytes = itemsize * (A * N * 4 + D * N * 3 + E * 12 + E * 56)
+    ops = A * N * ba_reduce_kernel.FLOPS_PER_POINT
+    peak = F32_OPS_PER_S if itemsize == 4 else F64_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    old = itemsize * (E * N * 7 + E * 12 + E * 56) / HBM_BYTES_PER_S * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations", all_rows_bound_ms=old)
 
 
-def phase_ray_reduce(Es=(16, 32, 128, 512), N=147456):
+def phase_ray_reduce():
+    """Every case of RAY_CASES: f32 and f64 kernel vs the f64 plain version,
+    inactive rows exactly 0, two calls bitwise equal; at N = 147,456 the
+    device time (calls queued behind a spin kernel), the single-call time
+    (events around one call: what the eager solve pays), the f64 device
+    time, the plain version's time and the bound."""
     rk = ba_reduce_kernel
-    per_E = {}
-    cases = [(E, N) for E in Es] + [(16, N - 333)]  # the last: N off the 4096-point chunk
-    for k, (E, n) in enumerate(cases):
-        scal, XiT, XjT, w0 = _ray_inputs(k, E, n)
-        B32, g32 = rk.ray_edge_systems(scal, XiT, XjT, w0, **RAY_KW)
-        B32b, g32b = rk.ray_edge_systems(scal, XiT, XjT, w0, **RAY_KW)
-        d64 = tuple(a.double() for a in (scal, XiT, XjT, w0))
-        B64, g64 = rk.ray_edge_systems(*d64, **RAY_KW)
-        B64b, g64b = rk.ray_edge_systems(*d64, **RAY_KW)
+    per_case = {}
+    for k, (case, n) in enumerate(RAY_CASES):
+        args = kernel_cases.ray_case(case, k, DEV, n_pts=n)
+        jj, active = args[4], args[5]
+        A, D = kernel_cases.ray_counts(jj, active)
+        E = int(jj.shape[0])
+        run32 = lambda: rk.ray_edge_systems(*args, **RAY_KW, n_active=A)  # noqa: E731
+        d64 = tuple(a.double() for a in args[:4]) + (jj, active)
+        run64 = lambda: rk.ray_edge_systems(*d64, **RAY_KW, n_active=A)  # noqa: E731
+        (B32, g32), (B32b, g32b), (B64, g64), (B64b, g64b) = run32(), run32(), run64(), run64()
         torch.cuda.synchronize()
         Bp, gp = rk.ray_edge_systems_plain(*d64, **RAY_KW)
-        out = dict(E=E, N=n,
-                   err_f32=max(_rel_err(B32, Bp), _rel_err(g32, gp)),
-                   err_f64=max(_rel_err(B64, Bp), _rel_err(g64, gp)),
+        live = active.cpu()
+        dead = ~active
+        out = dict(case=case, E=E, N=n, A=A, D=D,
+                   err_f32=max(_rel_err(B32, Bp, live), _rel_err(g32, gp, live)),
+                   err_f64=max(_rel_err(B64, Bp, live), _rel_err(g64, gp, live)),
                    max_abs_err_f32=float(max((B32.double() - Bp).abs().max(),
                                              (g32.double() - gp).abs().max())),
                    repeatable=bool(torch.equal(B32, B32b) and torch.equal(g32, g32b)
                                    and torch.equal(B64, B64b) and torch.equal(g64, g64b)),
-                   masked_edge_zero=bool(torch.count_nonzero(B32[-1]) == 0
-                                         and torch.count_nonzero(g32[-1]) == 0))
-        del d64, Bp, gp
-        if n == N:
-            out["ms"] = cuda_ms(lambda: rk.ray_edge_systems(scal, XiT, XjT, w0, **RAY_KW))
-            out["plain_ms"] = cuda_ms(lambda: rk.ray_edge_systems_plain(scal, XiT, XjT, w0, **RAY_KW))
-            X64 = tuple(a.double() for a in (scal, XiT, XjT, w0))
-            out["f64_ms"] = cuda_ms(lambda: rk.ray_edge_systems(*X64, **RAY_KW))
-            out["f64_bound_ms"] = ray_bound(E, n, 8)["bound_ms"]
-            del X64
-            out.update(ray_bound(E, n))
-            per_E[E] = out
+                   inactive_zero=bool(all(int(torch.count_nonzero(t[dead])) == 0
+                                          for t in (B32, g32, B64, g64))))
+        del Bp, gp
+        if n == kernel_cases.RAY_N:
+            out["device_ms"] = cuda_ms_queued(run32)
+            out["single_ms"] = cuda_ms(run32)
+            out["f64_device_ms"] = cuda_ms_queued(run64)
+            out["plain_ms"] = cuda_ms(lambda: rk.ray_edge_systems_plain(*args, **RAY_KW), reps=3, warmup=1)
+            out["f64_bound_ms"] = ray_bound(A, D, E, n, 8)["bound_ms"]
+            out.update(ray_bound(A, D, E, n))
+            per_case[case] = out
         emit("ray_reduce", **out)
         if not (out["err_f32"] <= 1e-4 and out["err_f64"] <= 1e-10):
-            raise AssertionError(f"ray kernel disagrees with its plain version at E={E}, N={n}")
-        if not (out["repeatable"] and out["masked_edge_zero"]):
-            raise AssertionError(f"ray kernel not repeatable or masked edge not 0 at E={E}, N={n}")
-        del scal, XiT, XjT, w0
+            raise AssertionError(f"ray kernel disagrees with its plain version on {case}, N={n}")
+        if not (out["repeatable"] and out["inactive_zero"]):
+            raise AssertionError(f"ray kernel not repeatable or an inactive row not 0 on {case}, N={n}")
+        del args, d64, B32, g32, B32b, g32b, B64, g64, B64b, g64b
         torch.cuda.empty_cache()
-    return per_E
+    return per_case
 
 
 class _Failures(logging.Handler):
@@ -728,14 +731,15 @@ def main():
     attn = phase_attention()
     phase_tiny()
     main_launches, _ = phase_main()
-    per_E = phase_ray_reduce()
+    per_ray = phase_ray_reduce()
     phase_backend_tiny()
     phase_calib_tiny()
     ser, thr = phase_backend_main()
     ds = phase_dataset_main()
-    # the ray kernel's time at the edge count the backend path handed it last
+    # the ray kernel's time on the window case of the edge rows the backend
+    # path handed it last
     E_main = ser["edge_rows"][-1]
-    ray_t = per_E[E_main]
+    ray_t = per_ray[{16: "win16_8p", 32: "win32_11p"}.get(E_main, f"all{E_main}")]
     rt = refine["384x512"]
     at = attn[0]  # the encoder at 768 tokens: (1, 16, 768, 64) bf16
     per_path = lambda name: {"main": main_launches[name],  # noqa: E731
@@ -769,15 +773,17 @@ def main():
         "launches": ser["launches"]["ray_edge_systems"],
         "launches_per_path": per_path("ray_edge_systems"),
         "shape": [E_main, ray_t["N"]],
+        "case": ray_t["case"],
         "max_abs_err": ray_t["max_abs_err_f32"],
         "max_rel_err": ray_t["err_f32"],
-        "ms": ray_t["ms"],
+        "ms": ray_t["device_ms"],
+        "single_ms": ray_t["single_ms"],
         "plain_ms": ray_t["plain_ms"],
         "bound_ms": ray_t["bound_ms"],
         "bound_by": ray_t["bound_by"],
         "library_ms": None,
-        "per_E": {str(E): {k: v[k] for k in ("ms", "plain_ms", "f64_ms", "bound_ms", "f64_bound_ms",
-                                             "err_f32", "err_f64")} for E, v in per_E.items()},
+        "per_case": {c: {k: v[k] for k in ("E", "A", "D", "device_ms", "single_ms", "plain_ms", "f64_device_ms",
+                                           "bound_ms", "err_f32", "err_f64")} for c, v in per_ray.items()},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -381,8 +381,9 @@ class BackendGraph:
             return None
         uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
         stats: dict = {}
+        # the live rows are the first 2 * len(_pairs): the kernel's sizing hint
         T_new = solve_gn_rays(self.cfg, self.cfg.pin, T_win, X_win, C_win, edges_win,
-                              odom_win, sb, stats=stats)
+                              odom_win, sb, stats=stats, n_active=2 * len(self._pairs))
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 

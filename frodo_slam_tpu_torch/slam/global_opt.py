@@ -138,33 +138,42 @@ def _edges_pre(cfg: BAConfig, X, C, edges: Edges):
     return Xi.transpose(1, 2), w0
 
 
-def _edge_inputs(cfg: BAConfig, X, C, edges: Edges):
-    """(XiT, w0, XjT): the cached pair when the edge store has it, else
-    :func:`_edges_pre`; XjT is frame j's points, channel-major."""
+def _edge_cache(cfg: BAConfig, X, C, edges: Edges):
+    """(XiT, w0): the cached pair when the edge store has it, else
+    :func:`_edges_pre`."""
     if edges.XiT is not None:
-        XiT, w0 = edges.XiT, edges.w0
-    else:
-        XiT, w0 = _edges_pre(cfg, X, C, edges)
-    XjT = X.transpose(1, 2)[edges.jj.long()]  # (E, 3, HW)
-    return XiT, w0, XjT
+        return edges.XiT, edges.w0
+    return _edges_pre(cfg, X, C, edges)
 
 
-def _kernel_ray_fn(cfg: BAConfig):
+def _edge_inputs(cfg: BAConfig, X, C, edges: Edges):
+    """(XiT, w0, XjT) of the calibrated solve: :func:`_edge_cache` and frame
+    j's points, channel-major (E, 3, HW). The ray solve makes no such copy:
+    its kernel reads X through ``jj``."""
+    XiT, w0 = _edge_cache(cfg, X, C, edges)
+    return XiT, w0, X.transpose(1, 2)[edges.jj.long()]
+
+
+def _kernel_ray_fn(cfg: BAConfig, n_active: Optional[int] = None):
     """Ray edge systems through :func:`ray_edge_systems` (the kernel on the
     card, its plain version on the CPU): per GN iteration ONE launch reduces
-    every edge; the per-edge Sim(3) scalars and the 7x7 AdjInv products stay
-    plain tensor code (they lie outside the TPU kernel too). Returns
-    ``fn(T, xs) -> (A (E, 7, 7), gj (E, 7))`` with xs = (ii, jj, XiT, w0, XjT)."""
+    every live edge, Xj read from the window's pointmaps X (P, HW, 3) through
+    ``jj``; the per-edge Sim(3) scalars and the 7x7 AdjInv products stay
+    plain tensor code (they lie outside the TPU kernel too). ``n_active``
+    (live rows, as the host knows them) sizes the kernel's chunks. Returns
+    ``fn(T, xs) -> (A (E, 7, 7), gj (E, 7))`` with xs = (ii, jj, XiT, w0, X,
+    active); inactive rows are 0."""
 
     def fn(T_WC_in, xs):
-        ii, jj, XiT, w0, XjT = xs
+        ii, jj, XiT, w0, X, active = xs
         Ti = T_WC_in[ii.long()]
         Tij = lie.sim3_rel(Ti, T_WC_in[jj.long()])
         sR = Tij[:, 7, None, None] * lie.quat_to_R(Tij[:, 3:7])
         dt = XiT.dtype
         scal = torch.cat([sR.reshape(-1, 9), Tij[:, :3]], dim=-1).to(dt)
-        B, g = ray_edge_systems(scal, XiT, XjT.to(dt), w0.to(dt),
-                                sigma_ray=float(cfg.sigma_ray), sigma_dist=float(cfg.sigma_dist))
+        B, g = ray_edge_systems(scal, XiT, w0.to(dt), X.to(dt), jj, active,
+                                sigma_ray=float(cfg.sigma_ray), sigma_dist=float(cfg.sigma_dist),
+                                n_active=n_active)
         M = _adj_inv_matrix(Ti).to(dt)
         A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
         gj = torch.einsum("eba,eb->ea", M, g)
@@ -454,16 +463,19 @@ def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, 
 
 @torch.no_grad()
 def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: OdomEdges,
-                  s_bar, stats: Optional[dict] = None):
+                  s_bar, stats: Optional[dict] = None, n_active: Optional[int] = None):
     """Global ray-alignment GN with odometry factors and scale priors
     (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934).
 
     T_WC (P, 8) window poses, X (P, HW, 3), C (P, HW, 1), s_bar (P,) scale
     targets (<= 0 disables). f32 edge systems for f32 inputs, an f64 solve
-    (the reference's double Eigen solve). Returns the updated (P, 8) poses."""
-    XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
-    xs = (edges.ii, edges.jj, XiT, w0, XjT)
-    fn = _kernel_ray_fn(cfg)
+    (the reference's double Eigen solve). ``n_active``: the live edge rows
+    as the host knows them (a sizing hint of the kernel; None: all rows).
+    Returns the updated (P, 8) poses."""
+    XiT, w0 = _edge_cache(cfg, X, C, edges)
+    xs = (edges.ii, edges.jj.to(torch.int32), XiT.contiguous(), w0.contiguous(), X.contiguous(),
+          edges.active)
+    fn = _kernel_ray_fn(cfg, n_active)
     return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, lambda T: fn(T, xs), stats=stats)
 
 

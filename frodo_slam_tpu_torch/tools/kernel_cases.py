@@ -18,6 +18,22 @@ raster, as ``ops/matching.py`` hands them to the kernel):
   (3, -2) px shift of (x, y) about the image centre), and seeds at the true
   match plus +-2 px noise: what the LM projection of a rigid scene hands the
   refine.
+
+Ray-edge cases (``ray_case``; numpy-seeded, then moved to ``device``) at
+N = 147,456 points (288x512), as ``slam/global_opt.py`` hands them to the
+kernel: scal (E, 12), XiT (E, 3, N), w0 (E, N), the window's pointmaps
+X (P, N, 3), jj (E,) int32, active (E,) bool. Two rows a keyframe pair, in
+the window build's order (``slam/backend.py`` ``_build_window``):
+
+- ``win16_4p``: P = 8, 4 consecutive pairs, 16 rows (8 live);
+- ``win16_8p``: P = 16, 8 consecutive pairs, 16 rows (16 live);
+- ``win32_11p``: P = 16, 10 consecutive pairs + the loop pair (0, 10), 32
+  rows (22 live);
+- ``all16``, ``all32``, ``all128``, ``all512``: every row live, jj = e mod
+  16, P = 16; the last row's weights all 0.
+
+Inactive rows hold stale nonzero data (another pose, points and weights, a
+jj inside the window), as rows of an evicted pair would.
 """
 
 from __future__ import annotations
@@ -25,10 +41,14 @@ from __future__ import annotations
 import math
 import statistics
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 REFINE_CASES = ("identity_pm20", "collisions", "smooth_warp")
+RAY_N = 288 * 512
+RAY_WINDOW_CASES = ("win16_4p", "win16_8p", "win32_11p")
+RAY_ALL_ACTIVE_CASES = ("all16", "all32", "all128", "all512")
 
 
 def _grid(h: int, w: int, device) -> torch.Tensor:
@@ -82,6 +102,64 @@ def refine_case(kind: str, h: int, w: int, seed: int, device, f: int = 24):
     else:
         raise ValueError(f"unknown refine case {kind!r}")
     return D11, D21, _clip(p1, h, w).to(torch.int32)
+
+
+def _ray_window(name: str):
+    """(P, E, keyframe pairs) of a window case."""
+    if name == "win16_4p":
+        return 8, 16, [(k, k + 1) for k in range(4)]
+    if name == "win16_8p":
+        return 16, 16, [(k, k + 1) for k in range(8)]
+    if name == "win32_11p":
+        return 16, 32, [(k, k + 1) for k in range(10)] + [(0, 10)]
+    raise ValueError(f"unknown ray case {name!r}")
+
+
+def _sim3_scal(rng, E: int) -> np.ndarray:
+    """(E, 12) [sR | t] of relative Sim(3)s near identity (Rodrigues)."""
+    w = 0.05 * rng.standard_normal((E, 3))
+    th = np.linalg.norm(w, axis=1)[:, None, None]
+    k = w / np.maximum(th[:, :, 0], 1e-12)
+    K = np.zeros((E, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -k[:, 2], k[:, 1], -k[:, 0]
+    K = K - K.transpose(0, 2, 1)
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+    s = 1.0 + 0.01 * rng.standard_normal((E, 1, 1))
+    t = 0.05 * rng.standard_normal((E, 3))
+    return np.concatenate([(s * R).reshape(E, 9), t], axis=1)
+
+
+def ray_case(name: str, seed: int, device, n_pts: int = RAY_N, dtype=torch.float32):
+    """(scal, XiT, w0, X, jj, active) of one ray case (see the module
+    docstring): pointmaps around z = 5, Xi = X[jj] + 0.05 noise, weights in
+    [0, 2) with the first tenth of every row 0."""
+    rng = np.random.default_rng(seed)
+    if name.startswith("all"):
+        E, P = int(name[3:]), 16
+        jj = np.arange(E) % P
+        active = np.ones(E, bool)
+    else:
+        P, E, pairs = _ray_window(name)
+        jj = rng.integers(0, P, E)  # stale rows keep whatever they pointed at
+        for k, (i, j) in enumerate(pairs):
+            jj[2 * k], jj[2 * k + 1] = j, i
+        active = np.arange(E) < 2 * len(pairs)
+    X = rng.standard_normal((P, n_pts, 3), dtype=np.float32)
+    X[..., 2] += 5.0
+    XiT = np.ascontiguousarray(X[jj].transpose(0, 2, 1))
+    XiT += 0.05 * rng.standard_normal(XiT.shape, dtype=np.float32)
+    w0 = 2.0 * rng.random((E, n_pts), dtype=np.float32)
+    w0[:, : n_pts // 10] = 0.0
+    if name.startswith("all"):
+        w0[-1] = 0.0  # a fully masked live row
+    scal = _sim3_scal(rng, E)
+    to = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    return (to(scal), to(XiT), to(w0), to(X), to(jj, torch.int32), to(active, torch.bool))
+
+
+def ray_counts(jj: torch.Tensor, active: torch.Tensor):
+    """(A, D): live rows and the distinct frames they read."""
+    return int(active.sum()), int(torch.unique(jj[active]).numel())
 
 
 def attention_case(B: int, H: int, Nq: int, Nk: int, D: int, dtype, seed: int, device):

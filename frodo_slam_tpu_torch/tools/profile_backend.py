@@ -12,8 +12,9 @@ the calibrated tracker and window solve, no odometry.
 
 1. with every stage wrapped in ``torch.cuda.synchronize()`` + host clock:
    the window build, the points constrained to their rays (``--calib``),
-   the edge inputs (``XjT`` gather), per GN iteration the ray edge systems
-   (kernel + AdjInv) or the calibrated ones, the odometry systems
+   the edge inputs (the cached XiT/w0; ``--calib`` also gathers ``XjT``),
+   per GN iteration the ray edge systems (kernel + AdjInv) or the
+   calibrated ones, the odometry systems
    (closed-form Jacobians), the dense assembly (scatter), and the rest
    (scale prior, f64 Cholesky, retraction, the early-exit fetch); the syncs
    add their own cost;
@@ -84,7 +85,7 @@ def stage_times(args, dev, slam):
     acc = collections.defaultdict(float)
     names = {"ray_edge_systems": "ray_kernel", "_calib_edge_systems": "calib_edge_systems",
              "_odom_systems": "odometry", "_scatter_block": "assembly_scatter",
-             "_edge_inputs": "edge_inputs"}
+             "_edge_inputs" if args.calib else "_edge_cache": "edge_inputs"}
     real = {name: getattr(global_opt, name) for name in names}
     real_constrain = backend_mod.constrain_points_to_ray
     real_adj = global_opt._adj_inv_matrix

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernel A/B on one card: the refine and attention kernels of another tree
-(the parent commit) against this tree's, in the order P C C P.
+"""Kernel A/B on one card: the refine, attention and ray-edge kernels of
+another tree (the parent commit) against this tree's, in the order P C C P.
 
     git archive <parent> | tar -x -C build/parent
     python3 kernel_ab.py --parent build/parent [--other build/<tree> ...]
@@ -28,12 +28,24 @@ under its directory's name, in the order parent, this, others, and back.
 - GN iterations per frame of the main path (12 frames, fresh SLAM, the same
   model) with each attention in the model: this tree's kernel, the parent's,
   the plain version, and this tree's again (is the count repeatable?).
+- ray_edge_systems: the ray cases of ``kernel_cases`` (the window shapes
+  and the all-active rows, N = 147,456) and the first call of every window
+  solve of the backend path (chip_smoke's ``backend_main``, serialized: ViT-L
+  with shared heads and decoders, 12 identical 288x512 frames, every frame a
+  keyframe, odometry), inputs copied as the kernel got them. Device ms (50
+  calls queued behind a spin kernel) and single-call ms (events around one
+  call) for every tree, and for this tree's kernel with its chunks sized
+  from all E rows in place of the live ones (``rows_E``); a tree whose
+  kernel takes the gathered ``XjT`` (the earlier signature) gets it made
+  outside its timed window; every tree's error of B and of g against the
+  f64 plain version, per live edge.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib
+import inspect
 import json
 import pathlib
 import subprocess
@@ -42,7 +54,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from frodo_slam_tpu_torch.ops import attention_kernel, refine_kernel
+import numpy as np
+
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel
 from frodo_slam_tpu_torch.tools import kernel_cases
 
 PKG = "frodo_slam_tpu_torch"
@@ -52,7 +66,29 @@ ATTN_SHAPES = [(1, 16, 768, 768, 64), (1, 16, 576, 576, 64), (2, 12, 768, 768, 6
                (4, 12, 768, 768, 64), (1, 12, 768, 768, 64), (1, 12, 576, 576, 64)]
 
 
-def load_tree(root: pathlib.Path):
+class Tree:
+    """The kernel modules of one tree: ``ak`` attention, ``rk`` refine,
+    ``bk`` the ray-edge reduction."""
+
+    def __init__(self, ak, rk, bk):
+        self.ak, self.rk, self.bk = ak, rk, bk
+        # earlier trees: ray_edge_systems(scal, XiT, XjT, w0); now (scal, XiT, w0, X, jj, active)
+        self.ray_reads_x = "X" in inspect.signature(bk.ray_edge_systems).parameters
+
+    def modules(self):
+        return (self.ak, self.rk, self.bk)
+
+    def ray_call(self, scal, XiT, w0, X, jj, active, n_active=None):
+        """A no-argument call of this tree's ray kernel on these inputs; an
+        old kernel's XjT is gathered here, outside the timed call."""
+        kw = dict(sigma_ray=0.003, sigma_dist=10.0)
+        if self.ray_reads_x:
+            return lambda: self.bk.ray_edge_systems(scal, XiT, w0, X, jj, active, n_active=n_active, **kw)
+        XjT = X.transpose(1, 2)[jj.long()].contiguous()
+        return lambda: self.bk.ray_edge_systems(scal, XiT, XjT, w0, **kw)
+
+
+def load_tree(root: pathlib.Path) -> Tree:
     """The kernel modules of the package under ``root``, imported apart from
     this tree's (which stay in ``sys.modules``)."""
     ours = {k: sys.modules.pop(k) for k in list(sys.modules) if k == PKG or k.startswith(PKG + ".")}
@@ -60,6 +96,7 @@ def load_tree(root: pathlib.Path):
     try:
         ak = importlib.import_module(f"{PKG}.ops.attention_kernel")
         rk = importlib.import_module(f"{PKG}.ops.refine_kernel")
+        bk = importlib.import_module(f"{PKG}.ops.ba_reduce_kernel")
     finally:
         sys.path.pop(0)
         for k in [k for k in sys.modules if k == PKG or k.startswith(PKG + ".")]:
@@ -67,7 +104,7 @@ def load_tree(root: pathlib.Path):
         sys.modules.update(ours)
     if not pathlib.Path(ak.__file__).resolve().is_relative_to(root.resolve()):
         raise RuntimeError(f"{ak.__file__} is not under {root}")
-    return ak, rk
+    return Tree(ak, rk, bk)
 
 
 def palindrome(fns: dict, timer) -> dict:
@@ -118,6 +155,64 @@ def capture_main_path(dev, model, n_frames=4):
     _main_path(dev, model, n_frames, [(matching, "refine_matches", spy_refine),
                                       (layers, "flash_attention", spy_attn)])
     return refines, attns
+
+
+def capture_backend_path(dev, model, n_frames=12):
+    """The first ray-kernel call of every window solve of the serialized
+    backend path, inputs copied as the kernel received them (the model's
+    heads and decoders shared, so that identical frames track)."""
+    from frodo_slam_tpu_torch.config import make_config
+    from frodo_slam_tpu_torch.data.synthetic import smooth_random_frames
+    from frodo_slam_tpu_torch.slam import backend, global_opt
+    from frodo_slam_tpu_torch.slam.system import SLAM
+
+    model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
+    model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
+    cfg = make_config(tracking={"match_frac_thresh": 1.1, "min_match_frac": 0.0, "Q_conf": 0.0,
+                                "max_iters": 10},
+                      local_opt={"Q_conf": 0.0, "min_match_frac": 0.0})
+    slam = SLAM(cfg, model, (288, 512), use_backend=True, single_thread=True, device=dev)
+    calls, first = [], [False]
+    real_solve, real_ray = backend.solve_gn_rays, global_opt.ray_edge_systems
+
+    def solve(*a, **k):
+        first[0] = True
+        return real_solve(*a, **k)
+
+    def ray(scal, XiT, w0, X, jj, active, **k):
+        if first[0]:
+            calls.append((*(t.clone() for t in (scal, XiT, w0, X, jj, active)), k.get("n_active")))
+            first[0] = False
+        return real_ray(scal, XiT, w0, X, jj, active, **k)
+
+    backend.solve_gn_rays, global_opt.ray_edge_systems = solve, ray
+    try:
+        img = smooth_random_frames(1, 288, 512, seed=3)[0]
+        for i in range(n_frames):
+            odom = np.array([0.05 * i, 0.01 * i, 0.0, 0.0, 0.0, 0.0, 1.0], np.float32)
+            slam.grab_rgb(img, timestamp=float(i), odom_pose=odom)
+    finally:
+        backend.solve_gn_rays, global_opt.ray_edge_systems = real_solve, real_ray
+        slam.terminate()
+    return calls
+
+
+def ray_errors(trees, args, n_active):
+    """Each tree's largest per-live-edge error of B and of g against the f64
+    plain version, each over that edge's largest |entry| of B (of g). Near
+    the optimum g is ~0 and f32 rounding dominates its error."""
+    scal, XiT, w0, X, jj, live = args
+    Bp, gp = ba_reduce_kernel.ray_edge_systems_plain(scal.double(), XiT.double(), w0.double(), X.double(),
+                                                     jj, live, sigma_ray=0.003, sigma_dist=10.0)
+    out = {"err_B": {}, "err_g": {}}
+    for name, t in trees.items():
+        B, g = t.ray_call(*args, n_active=n_active)()
+        for key, got, want in (("err_B", B, Bp), ("err_g", g, gp)):
+            E = want.shape[0]
+            scale = want.reshape(E, -1).abs().amax(1).clamp(min=1e-300)
+            err = (got.double() - want).reshape(E, -1).abs().amax(1) / scale
+            out[key][name] = float(err[live].max())
+    return out
 
 
 def gn_iterations(dev, model, attention, n_frames=12):
@@ -179,19 +274,42 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"device": smi}), flush=True)
-    trees = {"parent": load_tree(pathlib.Path(args.parent)), "this": (attention_kernel, refine_kernel),
+    trees = {"parent": load_tree(pathlib.Path(args.parent)),
+             "this": Tree(attention_kernel, refine_kernel, ba_reduce_kernel),
              **{pathlib.Path(o).name: load_tree(pathlib.Path(o)) for o in args.other}}
-    with ThreadPoolExecutor(2 * len(trees)) as pool:
-        list(pool.map(lambda mod: mod.build(), [mod for pair in trees.values() for mod in pair]))
-    pak = trees["parent"][0]
+    with ThreadPoolExecutor(3 * len(trees)) as pool:
+        list(pool.map(lambda mod: mod.build(), [mod for t in trees.values() for mod in t.modules()]))
+    pak = trees["parent"].ak
 
-    def ab(timer, call):
-        """``call(attention module, refine module)`` timed for every tree."""
-        ms = palindrome({name: (lambda t=t: call(*t)) for name, t in trees.items()}, timer)
-        return dict(parent_ms=ms.pop("parent"), ms=ms.pop("this"), **{f"{k}_ms": t for k, t in ms.items()})
+    def ab(timer, call, prefix=""):
+        """``call(tree)`` timed for every tree."""
+        ms = palindrome({name: (lambda t=t: call(t)) for name, t in trees.items()}, timer)
+        return {f"{prefix}parent_ms": ms.pop("parent"), f"{prefix}ms": ms.pop("this"),
+                **{f"{prefix}{k}_ms": t for k, t in ms.items()}}
 
     def refine_ab(D11, D21, p1, radius, dmax):
-        return ab(kernel_cases.cuda_ms, lambda ak, rk: rk.refine_matches(D11, D21, p1, radius, dmax))
+        return ab(kernel_cases.cuda_ms, lambda t: t.rk.refine_matches(D11, D21, p1, radius, dmax))
+
+    def ray_ab(args, n_active):
+        """Device ms and single-call ms of every tree's ray kernel, and of
+        this tree's with its chunks sized from all E rows (``rows_E``: no
+        ``n_active``)."""
+        calls = {name: t.ray_call(*args, n_active=n_active) for name, t in trees.items()}
+        calls["rows_E"] = trees["this"].ray_call(*args)
+        out = {}
+        for prefix, timer in (("device_", kernel_cases.cuda_ms_queued), ("single_", kernel_cases.cuda_ms)):
+            ms = palindrome(calls, timer)
+            out.update({f"{prefix}parent_ms": ms.pop("parent"), f"{prefix}ms": ms.pop("this"),
+                        **{f"{prefix}{k}_ms": t for k, t in ms.items()}})
+        return out
+
+    for k, case in enumerate(kernel_cases.RAY_WINDOW_CASES + kernel_cases.RAY_ALL_ACTIVE_CASES):
+        args = kernel_cases.ray_case(case, k, dev)
+        A, D = kernel_cases.ray_counts(args[4], args[5])
+        print(json.dumps({"kernel": "ray_edge_systems", "case": case, "E": int(args[4].shape[0]), "A": A,
+                          "D": D, **ray_ab(args, A), **ray_errors(trees, args, A)}), flush=True)
+        del args
+        torch.cuda.empty_cache()
 
     for h, w in REFINE_GRIDS:
         for seed, case in enumerate(kernel_cases.REFINE_CASES):
@@ -214,7 +332,7 @@ def main(argv=None):
     attns = {"parent": pak.flash_attention, "this": attention_kernel.flash_attention}
     for i, shape in enumerate(ATTN_SHAPES):
         q, k, v = kernel_cases.attention_case(*shape, torch.bfloat16, 100 + i, dev)
-        ms = ab(kernel_cases.cuda_ms_queued, lambda ak, rk: ak.flash_attention(q, k, v))
+        ms = ab(kernel_cases.cuda_ms_queued, lambda t: t.ak.flash_attention(q, k, v))
         lib = kernel_cases.cuda_ms_queued(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
         e = attention_errors(attns, q, k, v)
         print(json.dumps({"kernel": "flash_attention", "shape": list(shape), **ms,
@@ -237,6 +355,13 @@ def main(argv=None):
         it = gn_iterations(dev, model, fa)
         print(json.dumps({"gn_iterations": name, "per_frame": it,
                           "mean_frames_2_to_11": sum(it[2:]) / len(it[2:])}), flush=True)
+
+    for j, (*args, n_active) in enumerate(capture_backend_path(dev, model)):
+        A, D = kernel_cases.ray_counts(args[4], args[5])
+        print(json.dumps({"kernel": "ray_edge_systems", "case": f"backend_path_solve_{j}",
+                          "E": int(args[4].shape[0]), "A": A, "D": D, "n_active": n_active,
+                          "zero_weight_share": float((args[2][args[5]] == 0).float().mean()),
+                          **ray_ab(args, n_active), **ray_errors(trees, args, n_active)}), flush=True)
 
 
 if __name__ == "__main__":

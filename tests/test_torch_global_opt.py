@@ -104,45 +104,98 @@ def test_edges_pre_matches_jax():
     np.testing.assert_allclose(w0_t.numpy(), np.asarray(w0_j), rtol=1e-6)
 
 
-def test_ray_plain_matches_jax_pallas_interpret():
-    """The plain version (what the kernel is held against on the card) vs
-    the Pallas kernel in interpret mode, f32, on the same inputs."""
+def _stale_world():
+    """``_gated_world`` with its inactive last row made stale (another jj,
+    nonzero weights, as an evicted pair leaves it) and a fifth frame read
+    by no row, so two rows share every jj. Returns (T, X, XiT, w0, d)."""
     T, X, C, d = _gated_world()
     XiT, w0 = tgo._edges_pre(tgo.BAConfig(), torch.from_numpy(X), torch.from_numpy(C), t_edges(d))
-    XiT, w0 = XiT.contiguous().numpy(), w0.numpy()
+    XiT, w0 = XiT.contiguous().numpy().copy(), w0.numpy().copy()
+    d["jj"][-1] = 0
+    w0[-1] = np.random.default_rng(4).uniform(0.5, 2.0, w0.shape[1])
+    X = np.concatenate([X, X[:1] + 1.0])
+    T = np.concatenate([T, T[:1]])
+    return T, X, XiT, w0, d
+
+
+def test_ray_plain_matches_jax_pallas_interpret():
+    """The plain version (what the kernel is held against on the card),
+    reading Xj through jj, vs the Pallas kernel in interpret mode fed the
+    gathered XjT, f32, on the same inputs: live rows per edge within 1e-4 x
+    that edge's largest entry; the stale inactive row exactly 0."""
+    T, X, XiT, w0, d = _stale_world()
     XjT = np.ascontiguousarray(np.swapaxes(X, 1, 2)[d["jj"]])
     scal = _scal(T, d["ii"], d["jj"]).astype(np.float32)
     kw = dict(sigma_ray=0.003, sigma_dist=10.0)
     Bj, gj = ray_edge_systems_pallas(*(jnp.asarray(a) for a in (scal, XiT, XjT, w0)),
                                      interpret=True, **kw)
-    Bt, gt = brk.ray_edge_systems_plain(*(torch.from_numpy(a) for a in (scal, XiT, XjT, w0)), **kw)
+    Bt, gt = brk.ray_edge_systems_plain(*(torch.from_numpy(a) for a in (scal, XiT, w0, X, d["jj"],
+                                                                       d["active"])), **kw)
+    live = d["active"]
+    assert len(set(d["jj"][live])) < live.sum()  # rows share a frame
     for got, want in ((Bt.numpy(), np.asarray(Bj)), (gt.numpy(), np.asarray(gj))):
         E = want.shape[0]
         scale = np.abs(want.reshape(E, -1)).max(1)
         err = np.abs(got - want).reshape(E, -1).max(1)
-        assert (err <= 1e-4 * scale).all(), err / scale
+        assert (err[live] <= 1e-4 * scale[live]).all(), err / scale
+        assert not got[~live].any() and np.abs(want[~live]).max() > 0
 
 
 def test_ray_fn_f64_matches_jax_edge_system():
     """The kernel edge function (plain version on the CPU, then AdjInv) in
     f64 vs the JAX per-edge D.G form, also f64 under the suite's x64:
     rtol 1e-9 (atol 1e-9 x the edge's largest entry for entries that cancel
-    to ~0 in one form and are literal zeros in the other)."""
+    to ~0 in one form and are literal zeros in the other) on the live
+    edges; the inactive edge 0."""
     T, X, C, d = _gated_world()
     T, X, C = T.astype(np.float64), X.astype(np.float64), C.astype(np.float64)
     d = dict(d, Q=d["Q"].astype(np.float64))
     XiT, w0 = jgo._edges_pre(jgo.BAConfig(), jnp.asarray(X), jnp.asarray(C), j_edges(d))
     XiT, w0 = np.asarray(XiT), np.asarray(w0)
-    XjT = np.swapaxes(X, 1, 2)[d["jj"]]
-    xs = tuple(torch.from_numpy(np.array(a)) for a in (d["ii"], d["jj"], XiT, w0, XjT))
+    xs = tuple(torch.from_numpy(np.array(a)) for a in (d["ii"], d["jj"], XiT, w0, X, d["active"]))
     A_t, g_t = tgo._kernel_ray_fn(tgo.BAConfig())(torch.from_numpy(T), xs)
     assert A_t.dtype == torch.float64
     for e in range(len(d["ii"])):
+        if not d["active"][e]:
+            assert torch.count_nonzero(A_t[e]) == 0 and torch.count_nonzero(g_t[e]) == 0
+            continue
         A_j, g_j = jgo._ray_edge_system(jgo.BAConfig(), jnp.asarray(T), d["ii"][e], d["jj"][e],
                                         jnp.asarray(XiT[e].T), jnp.asarray(w0[e]),
-                                        jnp.asarray(XjT[e].T))
+                                        jnp.asarray(X[d["jj"][e]]))
         for got, want in ((A_t[e].numpy(), np.asarray(A_j)), (g_t[e].numpy(), np.asarray(g_j))):
             np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
+
+
+def test_solve_gn_rays_reads_xj_through_jj(monkeypatch):
+    """The ray solve makes no (E, 3, N) copy of X: the XjT gather of
+    ``_edge_inputs`` is never reached, and every GN iteration hands the
+    kernel the window's own pointmaps with jj, active and the live-row
+    hint."""
+    kw, T0, X, C, d, o, sb, _ = _case("rays")
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+
+    def no_gather(*a, **k):
+        raise AssertionError("the ray solve gathered XjT")
+
+    calls = []
+    real = tgo.ray_edge_systems
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tgo, "_edge_inputs", no_gather)
+    monkeypatch.setattr(tgo, "ray_edge_systems", spy)
+    X_t = f32(X)
+    stats = {}
+    tgo.solve_gn_rays(tgo.BAConfig(**kw), 1, f32(T0), X_t, f32(C), t_edges(d),
+                      tgo.OdomEdges(**{k: torch.from_numpy(v) for k, v in o.items()}), f32(sb),
+                      stats=stats, n_active=4)
+    assert len(calls) == stats["iters"] >= 1
+    for a, k in calls:
+        scal, XiT, w0, Xk, jj, active = a
+        assert Xk is X_t and jj.dtype == torch.int32 and active.dtype == torch.bool
+        assert XiT.shape == (jj.shape[0], 3, X.shape[1]) and k["n_active"] == 4
 
 
 def _odom_poses(seed, angle=None):

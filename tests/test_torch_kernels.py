@@ -8,8 +8,10 @@ reference kernel (matching_kernels.cu:25-85); on the card the Hopper kernel
 is held against the plain version, bitwise, on random and smooth-warp seeds,
 tiles at the border, tiles whose seeds spread apart, two batch elements,
 1-D tiles, radius 1-3 and dilation 0-5. The ray-edge kernel is held
-against its plain version in f64 (its plain version is held against the JAX
-package in tests/test_torch_global_opt.py). The attention kernel is held
+against its plain version in f64 on the window cases of
+tools/kernel_cases.py, N off the tile, zero live rows, P = 1 and stale
+inactive rows (its plain version is held against the JAX package in
+tests/test_torch_global_opt.py). The attention kernel is held
 against its plain version within a bar of the output's largest magnitude
 (its plain version is held against the JAX package in
 tests/test_torch_attention.py).
@@ -248,29 +250,98 @@ def test_refine_kernel_rejects_bad_inputs(card):
 # ray_edge_systems (the backend's ray-edge normal equations)
 # ---------------------------------------------------------------------------
 
-def _ray_inputs(seed, E, N, dtype=np.float32):
-    """Per-edge relative Sim(3)s near identity, points around z = 5, weights
-    in [0, 2) with a zeroed prefix and a fully masked last edge."""
+RAY_KW = dict(sigma_ray=0.003, sigma_dist=10.0)
+
+
+def _ray_inputs(seed, E, N, P=4, dtype=np.float32, n_live=None):
+    """Per-edge relative Sim(3)s near identity, pointmaps X (P, N, 3) around
+    z = 5, Xi near X[jj], weights in [0, 2) with a zeroed prefix; the last
+    live row fully masked; rows from ``n_live`` on inactive, with stale
+    nonzero data. Returns (scal, XiT, w0, X, jj, active)."""
     rng = np.random.default_rng(seed)
+    n_live = E if n_live is None else n_live
     scal = 0.3 * rng.normal(size=(E, 12))
     scal[:, [0, 4, 8]] += 1.0
-    off = np.array([0.0, 0.0, 5.0])[None, :, None]
-    XiT = rng.normal(size=(E, 3, N)) + off
-    XjT = rng.normal(size=(E, 3, N)) + off
+    X = rng.normal(size=(P, N, 3))
+    X[..., 2] += 5.0
+    jj = (np.arange(E) * 3 + 1) % P  # repeats once E > P
+    XiT = np.swapaxes(X[jj], 1, 2) + 0.05 * rng.normal(size=(E, 3, N))
     w0 = rng.uniform(0, 2, size=(E, N))
     w0[:, : N // 10] = 0.0
-    w0[-1] = 0.0
-    return tuple(a.astype(dtype) for a in (scal, XiT, XjT, w0))
+    if n_live:
+        w0[n_live - 1] = 0.0
+    active = np.arange(E) < n_live
+    return (*(torch.from_numpy(a.astype(dtype)) for a in (scal, XiT, w0, X)),
+            torch.from_numpy(jj.astype(np.int32)), torch.from_numpy(active))
 
 
 def test_ray_plain_masked_edge_is_exactly_zero():
-    args = tuple(torch.from_numpy(a) for a in _ray_inputs(0, 3, 300))
-    args[1][-1, :, :7] = 0.0  # all-zero pad points: guarded norms stay finite
-    args[2][-1, :, :7] = 0.0
-    B, g = brk.ray_edge_systems_plain(*args, sigma_ray=0.003, sigma_dist=10.0)
+    """A live row with zero weights and all-zero pad points, and an inactive
+    row holding NaNs and a jj outside the window: both exactly 0, the rest
+    finite and B symmetric."""
+    scal, XiT, w0, X, jj, active = _ray_inputs(0, 4, 300, n_live=3)
+    XiT[2, :, :7] = 0.0  # all-zero pad points: guarded norms stay finite
+    X[jj[2], :7] = 0.0
+    XiT[3] = float("nan")
+    jj[3] = 99
+    B, g = brk.ray_edge_systems_plain(scal, XiT, w0, X, jj, active, **RAY_KW)
     assert torch.isfinite(B).all() and torch.isfinite(g).all()
-    assert torch.count_nonzero(B[-1]) == 0 and torch.count_nonzero(g[-1]) == 0
+    for e in (2, 3):
+        assert torch.count_nonzero(B[e]) == 0 and torch.count_nonzero(g[e]) == 0
+    assert torch.count_nonzero(B[0]) > 0
     assert torch.equal(B, B.transpose(1, 2))
+
+
+def test_ray_plain_reads_xj_through_jj():
+    """Row e of the plain version is the system of X[jj[e]]: the same as a
+    one-frame call with that frame alone (f64: only the batching differs)."""
+    scal, XiT, w0, X, jj, active = _ray_inputs(1, 6, 200, P=3, dtype=np.float64)
+    B, g = brk.ray_edge_systems_plain(scal, XiT, w0, X, jj, active, **RAY_KW)
+    for e in range(6):
+        sl = slice(e, e + 1)
+        Be, ge = brk.ray_edge_systems_plain(scal[sl], XiT[sl], w0[sl], X[jj[sl].long()],
+                                            torch.zeros(1, dtype=torch.int32), active[sl], **RAY_KW)
+        torch.testing.assert_close(B[e], Be[0], rtol=1e-12, atol=0)
+        torch.testing.assert_close(g[e], ge[0], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("N,n_active,slots,itemsize", [
+    (147456, 8, 264, 4), (147456, 16, 264, 4), (147456, 22, 264, 4), (147456, 512, 264, 4),
+    (147456, 32, 132, 8), (9000, 1, 264, 4), (100, 3, 264, 8), (0, 4, 264, 4)])
+def test_ray_plan_covers_every_tile_in_one_wave(N, n_active, slots, itemsize):
+    """The chunks cover every tile of a row exactly (no empty chunk), and
+    the live rows make at most one wave of CTAs where they can."""
+    chunks, per = brk.ray_plan(N, n_active, slots, itemsize)
+    tiles = -(-N // (brk.TILE_BYTES // itemsize))
+    assert chunks >= 1 and per >= 1
+    if tiles:
+        assert (chunks - 1) * per < tiles <= chunks * per
+    if n_active <= slots:
+        assert chunks * n_active <= slots
+    if tiles >= slots // n_active:
+        assert chunks * n_active > slots // 2  # the wave is at least half full
+
+
+@pytest.mark.parametrize("case,A,D", [("win16_4p", 8, 5), ("win16_8p", 16, 9), ("win32_11p", 22, 11),
+                                      ("all16", 16, 16), ("all32", 32, 16)])
+def test_ray_cases_are_what_they_say(case, A, D):
+    """The seeded ray cases of chip_smoke and kernel_ab: the kernel's types
+    and shapes, the window build's row order (two rows a pair, live rows
+    first), stale nonzero inactive rows, the same case from the same seed."""
+    scal, XiT, w0, X, jj, active = kernel_cases.ray_case(case, 3, "cpu", n_pts=640)
+    E = scal.shape[0]
+    assert XiT.shape == (E, 3, 640) and w0.shape == (E, 640) and X.shape[1:] == (640, 3)
+    assert jj.dtype == torch.int32 and active.dtype == torch.bool
+    assert kernel_cases.ray_counts(jj, active) == (A, D)
+    assert torch.equal(active, torch.arange(E) < A)
+    assert ((jj >= 0) & (jj < X.shape[0])).all()
+    if A < E:
+        assert torch.count_nonzero(w0[~active]) > 0 and torch.count_nonzero(XiT[~active]) > 0
+    if case.startswith("win"):  # consecutive pairs (k, k + 1): rows j = k + 1, then j = k
+        n = 2 * (A // 2 - (case == "win32_11p"))
+        assert torch.equal(jj[0:n:2], jj[1:n:2] + 1)
+    for a, b in zip((scal, XiT, w0, X, jj, active), kernel_cases.ray_case(case, 3, "cpu", n_pts=640)):
+        assert torch.equal(a, b)
 
 
 def test_ray_library_path_tracks_source():
@@ -279,40 +350,81 @@ def test_ray_library_path_tracks_source():
     assert rk.library_path().parent == path.parent
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rel", [(np.float32, 1e-4), (np.float64, 1e-10)])
-@pytest.mark.parametrize("E,N", [(5, 9000), (3, 4096), (2, 100)])
-def test_ray_kernel_matches_plain_on_card(card, dtype, rel, E, N):
-    """Kernel vs the f64 plain version: per edge, |dB| and |dg| within
+def _ray_check(args, dtype, rel, n_active=None):
+    """Kernel vs the f64 plain version: per live edge, |dB| and |dg| within
     ``rel`` x that edge's largest entry (f32: a different summation order;
-    f64: rounding only). Two calls are bitwise equal; one launch per call."""
-    args = tuple(torch.from_numpy(a).to(card) for a in _ray_inputs(1, E, N, dtype))
-    kw = dict(sigma_ray=0.003, sigma_dist=10.0)
+    f64: rounding only); inactive rows exactly 0; two calls bitwise equal;
+    one counted launch per call."""
     before = brk.ray_edge_systems.launches
-    Bk, gk = brk.ray_edge_systems(*args, **kw)
-    Bk2, gk2 = brk.ray_edge_systems(*args, **kw)
+    Bk, gk = brk.ray_edge_systems(*args, **RAY_KW, n_active=n_active)
+    Bk2, gk2 = brk.ray_edge_systems(*args, **RAY_KW, n_active=n_active)
     torch.cuda.synchronize()
     assert brk.ray_edge_systems.launches == before + 2
-    assert Bk.dtype == args[1].dtype
+    assert Bk.dtype == dtype and gk.dtype == dtype
     assert torch.equal(Bk, Bk2) and torch.equal(gk, gk2)
-    Bp, gp = brk.ray_edge_systems_plain(*(a.double() for a in args), **kw)
+    scal, XiT, w0, X, jj, active = args
+    Bp, gp = brk.ray_edge_systems_plain(scal.double(), XiT.double(), w0.double(), X.double(), jj,
+                                        active, **RAY_KW)
+    live = active.cpu()
     for got, want in ((Bk.double(), Bp), (gk.double(), gp)):
+        E = want.shape[0]
         scale = want.reshape(E, -1).abs().amax(1).clamp(min=1e-30)
         err = (got - want).reshape(E, -1).abs().amax(1)
-        assert (err <= rel * scale).all(), (err / scale).tolist()
-    assert torch.count_nonzero(Bk[-1]) == 0 and torch.count_nonzero(gk[-1]) == 0
+        assert (err[live] <= rel * scale[live]).all(), (err / scale).tolist()
+        assert torch.count_nonzero(got[~live]) == 0
+    return Bk, gk
+
+
+# (case, N): the window shapes the main path makes, all-active rows with
+# repeated jj, N off the 512-point tile, under one tile, and not a multiple
+# of 4 points (rows not 16-byte aligned: the ring filled by plain loads)
+RAY_CARD_CASES = [("win16_4p", 9000), ("win32_11p", 9000), ("win16_8p", 100), ("all16", 4096),
+                  ("all32", 9001), ("win32_11p", 147456)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("case,N", RAY_CARD_CASES)
+def test_ray_kernel_matches_plain_on_card(card, dtype, rel, case, N):
+    args = kernel_cases.ray_case(case, 1, card, n_pts=N, dtype=dtype)
+    A = int(args[5].sum())
+    _ray_check(args, dtype, rel, n_active=A)
+    _ray_check(args, dtype, rel, n_active=1)  # the most chunks a row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("E,N,P,n_live", [(5, 9000, 4, 5), (3, 4096, 1, 3), (4, 2000, 3, 0), (6, 1, 2, 4)])
+def test_ray_kernel_small_windows_on_card(card, dtype, rel, E, N, P, n_live):
+    """P = 1, zero live rows (B = g = 0, still one launch), one point, a
+    masked live row and stale inactive rows whose jj lies outside the window
+    (the kernel must not read it)."""
+    args = [t.to(card) for t in _ray_inputs(2, E, N, P, np.float64 if dtype == torch.float64
+                                            else np.float32, n_live=n_live)]
+    args[4][n_live:] = 1000
+    Bk, gk = _ray_check(tuple(args), dtype, rel)
+    if n_live == 0:
+        assert torch.count_nonzero(Bk) == 0 and torch.count_nonzero(gk) == 0
 
 
 @pytest.mark.cuda
 def test_ray_kernel_rejects_bad_inputs(card):
-    args = [torch.from_numpy(a).to(card) for a in _ray_inputs(2, 2, 64)]
-    kw = dict(sigma_ray=0.003, sigma_dist=10.0)
+    args = [t.to(card) for t in _ray_inputs(2, 2, 64)]
     with pytest.raises(ValueError):
-        brk.ray_edge_systems(args[0], args[1], args[2][:, :, :10], args[3], **kw)
+        brk.ray_edge_systems(args[0], args[1], args[2][:, :10], *args[3:], **RAY_KW)
     with pytest.raises(ValueError):
-        brk.ray_edge_systems(args[0].double(), *args[1:], **kw)
+        brk.ray_edge_systems(args[0].double(), *args[1:], **RAY_KW)
     with pytest.raises(ValueError):
-        brk.ray_edge_systems(*(a.half() for a in args), **kw)
+        brk.ray_edge_systems(*(a.half() for a in args[:4]), *args[4:], **RAY_KW)
+    with pytest.raises(ValueError):  # jj must be int32, active bool
+        brk.ray_edge_systems(*args[:4], args[4].long(), args[5], **RAY_KW)
+    with pytest.raises(ValueError):
+        brk.ray_edge_systems(*args[:5], args[5].to(torch.uint8), **RAY_KW)
+    with pytest.raises(ValueError):  # X must be (P, N, 3)
+        brk.ray_edge_systems(*args[:3], args[3].transpose(1, 2).contiguous(), *args[4:], **RAY_KW)
+    with pytest.raises(ValueError):  # the kernel reads contiguous rows
+        brk.ray_edge_systems(args[0], args[1].transpose(0, 1).contiguous().transpose(0, 1), *args[2:],
+                             **RAY_KW)
 
 
 # (B, H, Nq, Nk, D): head dims 64 / 32 / 24, N in {48, 64, 100}, Nq != Nk,
