@@ -6,7 +6,8 @@
 Phases (one JSON line each; any failure exits nonzero, nothing is caught):
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: every hand-written kernel compiled from csrc/ with nvcc, one
-     nvcc per source, all started together;
+     nvcc per source, and the host popcount kernels with g++, all started
+     together;
   3. refine: the Hopper refine kernel vs its bf16 plain version at the
      dataset path's shape (1, 384, 512, 24) and at (1, 288, 512, 24),
      radius 3, dilation 5, on the three cases of tools/kernel_cases.py
@@ -54,11 +55,30 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      512x384 with shared random decoders, --no-retrieval --save-as: finite
      trajectory rows, the .ply, one PNG per keyframe; per-frame and
      per-solve ms, edge rows per window, peak memory;
- 12. the script's wall time; the kernels line; the device line (last line
+ 12. reloc_main: retrieval loop closure and relocalization through threaded
+     SLAM(use_backend=True, use_reloc=True) at ViT-L 288x512 (shared random
+     decoders), the retrieval head at 1024 -> 1024 with nfeat 300 and a
+     random codebook of 65,536 words (256 MiB on the card): a camera panning
+     over a smooth random panorama, every frame a keyframe (the fnn fallback
+     accepts a pan of a few steps), back over part of the way (a revisited
+     image must be retrieved and become a loop-closure edge), two blank
+     frames (lost; their relocalizations fail), then the map's first
+     image, too far from the active keyframe to track: it must relocalize
+     before the map resets. First the host popcount kernels
+     against their numpy plain versions at the query's shapes. Per-keyframe
+     retrieval ms split into query and insert, relocalization ms, loop
+     edges, launches;
+ 13. synthetic: the port's oracle harness (``python -m
+     frodo_slam_tpu_torch.tools.eval_synthetic --device cuda``) in
+     subprocesses: the straight row (10 frames at 3 mm), the --per-frame row
+     (warm frames) and the loop row (14 frames at 4 mm, with and without
+     retrieval), each held to the JAX package's bars; ATEs and launches;
+ 14. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
-On every path (6, 10 and 11) the kernel launch counters are zeroed just
-before it and read just after; each path must launch each of its kernels.
+On every path (6, 10, 11, 12 and 13) the kernel launch counters are zeroed
+just before it and read just after; each path must launch each of its
+kernels (the oracle of 13 replaces the model: no attention there).
 Its peak memory window starts after a garbage collection, and the bytes
 still allocated then are printed beside the peak.
 
@@ -100,6 +120,10 @@ from frodo_slam_tpu_torch.slam.inference import decode_mono  # noqa: E402
 from frodo_slam_tpu_torch.slam.system import SLAM  # noqa: E402
 from frodo_slam_tpu_torch.tools import kernel_cases  # noqa: E402
 from frodo_slam_tpu_torch.tools.kernel_cases import cuda_ms, cuda_ms_queued  # noqa: E402
+from frodo_slam_tpu_torch.retrieval import asmk  # noqa: E402
+from frodo_slam_tpu_torch.retrieval.database import RetrievalDatabase  # noqa: E402
+from frodo_slam_tpu_torch.retrieval.model import RetrievalHead  # noqa: E402
+from frodo_slam_tpu_torch.utils import native  # noqa: E402
 from frodo_slam_tpu_torch.utils.device import set_f32_contract  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -148,10 +172,12 @@ def phase_device():
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source and g++ for the host kernels, all started
+    together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        results = list(pool.map(lambda mod: mod.build(), KERNELS))
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        results = list(pool.map(lambda mod: mod.build(), KERNELS + [native]))
+    emit("host_build", library=native.library_path().name, seconds=round(results[-1][0], 3))
     for mod, (seconds, log) in zip(KERNELS, results):
         lines = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         emit("ptxas", kernel=mod.__name__, seconds=round(seconds, 3), log=lines)
@@ -722,6 +748,196 @@ def phase_dataset_main(n_images=24, work=None):
     return r
 
 
+# ---------------------------------------------------------------------------
+# reloc_main: retrieval loop closure and relocalization at full width
+# ---------------------------------------------------------------------------
+
+# With random weights and shared decoders only an identical image matches
+# projectively; the tracker's fnn fallback finds ~0.0145 of the pixels on a
+# pan of one step, under 0.009 on seven, none on a blank frame (the
+# per-frame fractions are printed). So min_match_frac 0.3 sends every
+# distinct frame to the fallback, which accepts at 0.011; loop-closure and
+# relocalization pairs pass their projective gates only between identical
+# images. The random head and codebook rank places poorly (an image's own
+# keyframe need not rank first, and the early keyframes top most queries),
+# so retrieval keeps ten keyframes, and a relocalization needs one
+# retrieved keyframe to match, not all: strict off.
+RELOC_CFG = dict(
+    tracking={"match_frac_thresh": 1.1, "min_match_frac": 0.3, "Q_conf": 0.0, "max_iters": 10,
+              "use_fnn": True, "min_match_frac_fnn": 0.011},
+    local_opt={"Q_conf": 0.0, "min_match_frac": 0.1},
+    retrieval={"k": 10},
+    reloc={"strict": False})
+RELOC_STEP = 32  # pixels the camera pans between frames
+RELOC_WORDS = 65536  # the codebook of record (retrieval/asmk.py)
+
+
+def reloc_frames(h, w, n_out=10, back_to=7, n_blank=2, step=RELOC_STEP):
+    """(crop index or -1, image) per frame: out over crops 0 .. n_out - 1,
+    back over n_out - 2 .. back_to (revisits), ``n_blank`` blank frames (a
+    covered camera; fewer than the losses that reset the map), then crop 0
+    again: the map's first image, seven steps from the active keyframe, too
+    far to track."""
+    pano = smooth_random_frames(1, h, w + step * n_out, seed=3)[0]
+    crop = lambda t: np.ascontiguousarray(pano[:, t * step: t * step + w])  # noqa: E731
+    seq = [(t, crop(t)) for t in range(n_out)] + [(t, crop(t)) for t in range(n_out - 2, back_to - 1, -1)]
+    return seq + [(-1, np.zeros((h, w, 3), np.float32))] * n_blank + [(0, crop(0))]
+
+
+def phase_host_kernels(dim=1024, nfeat=300, seed=0):
+    """The host popcount library against its numpy plain versions at the
+    query's shapes: pack nfeat x dim residuals, hamming against a word's
+    entries, accumulate alpha = 3 scores; bitwise, and 1e-12 for scores."""
+    rng = np.random.default_rng(seed)
+    vecs = rng.normal(size=(nfeat, dim)).astype(np.float32)
+    t0 = time.perf_counter()
+    packed = native.binarize_and_pack_2d(vecs)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    db = asmk.binarize_and_pack_plain(rng.normal(size=(64, dim)).astype(np.float32))
+    imids = rng.integers(0, 16, size=64).astype(np.int64)
+    norm = rng.integers(1, 300, size=16).astype(np.float64)
+    got, want = np.zeros(16), np.zeros(16)
+    native.asmk_accumulate_word(packed[0], db, imids, dim, 0.0, norm, got)
+    asmk.asmk_accumulate_word_plain(packed[0], db, imids, dim, 0.0, norm, want)
+    r = dict(pack_equal=bool(np.array_equal(packed, asmk.binarize_and_pack_plain(vecs))),
+             hamming_equal=bool(np.array_equal(native.hamming_cdist_packed(packed, db, dim),
+                                               asmk.hamming_cdist_packed_plain(packed, db, dim))),
+             scores_max_abs_err=float(np.abs(got - want).max()), pack_ms=pack_ms)
+    emit("host_kernels", **r)
+    if not (r["pack_equal"] and r["hamming_equal"] and r["scores_max_abs_err"] <= 1e-12):
+        raise AssertionError(f"the host popcount kernels disagree with their plain versions: {r}")
+    return r
+
+
+def run_reloc(model, h, w, n_words=RELOC_WORDS, nfeat=300, device=DEV):
+    """The reloc_main sequence through threaded SLAM; returns what it saw.
+    Every retrieval update is timed on the host (it ends in the fetch of
+    its features), split into the query and the insert it made."""
+    enc = model.cfg.enc_embed_dim
+    head = RetrievalHead.init(torch.Generator().manual_seed(1), backbone_dim=enc, hdims=[min(1024, enc)],
+                              nfeat=nfeat, device=device)
+    codebook = asmk.Codebook.random(np.random.default_rng(0), n_words, head.dim, device=device)
+    db = RetrievalDatabase(head, codebook, degraded=True)
+    failures = _Failures()
+    logging.getLogger("frodo_slam_tpu_torch").addHandler(failures)
+    slam = SLAM(make_config(**RELOC_CFG), model, (h, w), retrieval_db=db, use_backend=True,
+                use_reloc=True, single_thread=False, device=device)
+    updates, inserts, relocs = [], [], []
+    real_update, real_add, real_reloc = db.update, db._add, slam._relocalize
+
+    def update(feat, add_after_query, k, min_thresh=0.0, kf_id=None):
+        n, t0 = len(inserts), time.perf_counter()
+        out = real_update(feat, add_after_query, k, min_thresh=min_thresh, kf_id=kf_id)
+        ms = (time.perf_counter() - t0) * 1e3
+        ins = inserts[n] if len(inserts) > n else 0.0
+        updates.append(dict(kf_id=kf_id, add=bool(add_after_query), result=[int(i) for i in out], ms=ms,
+                            insert_ms=ins, query_ms=ms - ins))
+        return out
+
+    def add(*a, **k):
+        t0 = time.perf_counter()
+        real_add(*a, **k)
+        inserts.append((time.perf_counter() - t0) * 1e3)
+
+    def reloc(frame, timestamp):
+        t0 = time.perf_counter()
+        out = real_reloc(frame, timestamp)
+        relocs.append((timestamp, bool(out), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    db.update, db._add, slam._relocalize = update, add, reloc
+    seq = reloc_frames(h, w)
+    at_start = reset_peak() if device.type == "cuda" else 0
+    zero_counts()
+    frames, crop_of_kf = [], []
+    t_run = time.perf_counter()
+    for i, (t, img) in enumerate(seq):
+        n_kf = len(slam.kf_timestamps)
+        ok, T, new_kf = slam.grab_rgb(img, timestamp=float(i))
+        fl = slam.last_track.flags.cpu().numpy() if i else np.zeros(20)
+        frames.append(dict(crop=t, ok=bool(ok), new_kf=bool(new_kf), match_frac=float(fl[0]),
+                           fnn=bool(fl[19] > 0), finite=bool(np.isfinite(T).all())))
+        crop_of_kf += [t] * (len(slam.kf_timestamps) - n_kf)
+    slam.terminate()
+    run_s = time.perf_counter() - t_run
+    launches = read_counts()
+    logging.getLogger("frodo_slam_tpu_torch").removeHandler(failures)
+    pairs = list(slam.backend._pairs)
+    loops = [(i, j) for i, j in pairs if abs(j - i) > 1]
+    return dict(frames=frames, updates=updates, relocs=relocs, pairs=pairs, loop_edges=loops,
+                same_image_loop_edges=[(i, j) for i, j in loops if crop_of_kf[i] == crop_of_kf[j]],
+                crop_of_kf=crop_of_kf, atlas=len(slam.atlas), launches=launches, run_s=run_s,
+                backend_task_failures=failures.records, allocated_at_start=at_start,
+                poses_finite=bool(np.isfinite(slam.keyframe_poses()[1]).all()))
+
+
+def phase_reloc_main(h=288, w=512):
+    host = phase_host_kernels()
+    model = mast3r.init_model(mast3r.MASt3RConfig(), seed=0, device=DEV)
+    model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
+    model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
+    r = run_reloc(model, h, w)
+    q = [u["query_ms"] for u in r["updates"] if u["kf_id"] != 0]  # the first keyframe queries nothing
+    ins = [u["insert_ms"] for u in r["updates"] if u["add"]]
+    out = dict(image_hw=[h, w], n_words=RELOC_WORDS, nfeat=300, head=[1024, 1024], **r,
+               query_ms_median=statistics.median(q), insert_ms_median=statistics.median(ins),
+               reloc_ms=[ms for _, _, ms in r["relocs"]],
+               max_memory_allocated=torch.cuda.max_memory_allocated(), host_kernels=host)
+    emit("reloc_main", **{k: v for k, v in out.items() if k != "pairs"}, n_pairs=len(r["pairs"]))
+    f = r["frames"]
+    assert not r["backend_task_failures"], f"backend tasks failed: {r['backend_task_failures']}"
+    assert all(x["finite"] for x in f) and r["poses_finite"]
+    blank = [x for x in f if x["crop"] == -1]
+    assert all(x["ok"] and x["new_kf"] for x in f[:-len(blank) - 1]), "the pan did not track as keyframes"
+    assert blank and not any(x["ok"] for x in blank), "a blank frame tracked"
+    assert f[-1]["ok"] and not f[-1]["new_kf"], "the last frame did not relocalize"
+    assert [ok for _, ok, _ in r["relocs"]] == [False] * len(blank) + [True], r["relocs"]
+    assert r["atlas"] == 0, "the map reset"
+    assert r["same_image_loop_edges"], f"no retrieved revisit became a loop edge: {r['loop_edges']}"
+    for name in WRAPPERS:
+        assert r["launches"][name] > 0, f"reloc_main never launched {name}"
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# synthetic: the oracle harness on the card
+# ---------------------------------------------------------------------------
+
+SYNTH_ROWS = [("straight", ["--frames", "10", "--noise", "0.003"]),
+              ("per_frame", ["--per-frame", "--frames", "10", "--noise", "0.003"]),
+              ("loop", ["--loop", "--frames", "14", "--noise", "0.004"])]
+
+
+def phase_synthetic():
+    """Each row in a subprocess (the oracle patches the model module-wide),
+    held to the JAX package's bars (tests/test_synthetic_e2e.py)."""
+    rows, launches = {}, {"refine_matches": 0, "ray_edge_systems": 0, "flash_attention": 0}
+    for name, args in SYNTH_ROWS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "frodo_slam_tpu_torch.tools.eval_synthetic",
+                               "--device", "cuda", *args], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"synthetic {name} failed:\n{proc.stderr[-3000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        out["wall_s"] = time.perf_counter() - t0
+        for k, v in out.pop("launches").items():
+            launches[k] += v
+        rows[name] = out
+        emit("synthetic", row=name, **out)
+    s, pf, lp = rows["straight"], rows["per_frame"], rows["loop"]
+    on, off = lp["loop"], lp["no_retrieval"]
+    assert s["frames_tracked_ok"] == 10 and s["n_kf"] == 10 and s["ate_rmse"] < 0.05, s
+    assert pf["frames_tracked_ok"] == 10 and pf["n_kf"] < 10 and pf["ate_rmse"] < 0.05, pf
+    assert on["frames_tracked_ok"] == off["frames_tracked_ok"] == 14, lp
+    assert on["n_long_loop_edges"] >= 1 and off["n_loop_edges"] == 0, lp
+    assert on["ate_rmse"] <= off["ate_rmse"] * 1.05, lp
+    assert launches["refine_matches"] > 0 and launches["ray_edge_systems"] > 0, launches
+    return rows, launches
+
+
 def main():
     t_start = time.perf_counter()
     set_f32_contract()
@@ -736,6 +952,8 @@ def main():
     phase_calib_tiny()
     ser, thr = phase_backend_main()
     ds = phase_dataset_main()
+    reloc = phase_reloc_main()
+    _, synth = phase_synthetic()
     # the ray kernel's time on the window case of the edge rows the backend
     # path handed it last
     E_main = ser["edge_rows"][-1]
@@ -744,7 +962,9 @@ def main():
     at = attn[0]  # the encoder at 768 tokens: (1, 16, 768, 64) bf16
     per_path = lambda name: {"main": main_launches[name],  # noqa: E731
                              "backend_main": [ser["launches"][name], thr["launches"][name]],
-                             "dataset_main": ds["launches"][name]}
+                             "dataset_main": ds["launches"][name],
+                             "reloc_main": reloc["launches"][name],
+                             "synthetic": synth[name]}
     kernels = [{
         "name": "refine_matches",
         "route": "cuda",

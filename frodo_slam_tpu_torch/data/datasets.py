@@ -12,7 +12,7 @@ port runs on need not have OpenCV. :func:`optimal_new_camera_matrix`,
 ``cv2.getOptimalNewCameraMatrix(alpha=0)``, ``cv2.initUndistortRectifyMap``
 (radial-tangential k1, k2, p1, p2, k3) and ``cv2.remap(INTER_LINEAR)`` with a
 zero border, as OpenCV 5 computes them. MP4 input and the live
-cameras are ROADMAP.md §1 item 12.
+cameras are ROADMAP.md §1 "The rest of the entry points and IO".
 """
 
 from __future__ import annotations
@@ -351,9 +351,10 @@ def load_dataset(dataset_path: str, use_calib: bool = False,
     elif "7-scenes" in parts:
         ds = SevenScenesDataset(dataset_path, **kw)
     elif "realsense" in parts or "webcam" in parts:
-        raise NotImplementedError("live cameras (realsense, webcam) are ROADMAP.md §1 item 12")
+        raise NotImplementedError(
+            'live cameras (realsense, webcam) are ROADMAP.md §1 "The rest of the entry points and IO"')
     elif parts[-1].split(".")[-1].lower() in ("mp4", "avi", "mov"):
-        raise NotImplementedError("video input (MP4Dataset) is ROADMAP.md §1 item 12")
+        raise NotImplementedError('video input (MP4Dataset) is ROADMAP.md §1 "The rest of the entry points and IO"')
     else:
         ds = RGBFiles(dataset_path)
     if subsample > 1:

@@ -4,17 +4,21 @@
         [--calib <yaml>] [--save-as <name>] [--no-retrieval] [--weights <ckpt>]
 
 The port's copy of the JAX package's ``main.py:22-189``: the upstream loop
-(mono init -> track -> backend on new keyframes -> new map on loss) over a
+(mono init -> track -> backend on new keyframes -> reloc or new map on loss) over a
 TUM, EuRoC, ETH3D, 7-Scenes or image-folder sequence, on the card unless
 ``run(args, device="cpu")``. Outputs as the eval scripts expect them:
 ``logs/<save-as>/<seq>.txt`` (TUM trajectory), ``<seq>.ply``, keyframe PNGs
 and ``<seq>.meta.json``.
 
+Retrieval and relocalization are on unless ``--no-retrieval``
+(:func:`~frodo_slam_tpu_torch.loader.load_retriever`; without trained
+retrieval assets a random head and codebook, recorded as
+``"retrieval": "random-fallback"`` in the meta file, with a warning).
+
 Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
 effect (the port's window solve is always f64); ``tpu.placement`` is
-ignored on one card (ROADMAP.md §1 item 13). Retrieval (without
-``--no-retrieval``) and ``--viz`` raise ``NotImplementedError`` naming their
-ROADMAP items (10 and 12).
+ignored on one card (ROADMAP.md §1 "Multi-GPU placement"). ``--viz`` raises
+``NotImplementedError`` naming its ROADMAP.md §1 item.
 """
 
 from __future__ import annotations
@@ -43,14 +47,12 @@ def run(args, device=None) -> dict:
     from .slam.system import SLAM
     from .utils import evaluate
 
-    if not args.no_retrieval:
-        raise NotImplementedError("retrieval and relocalization are ROADMAP.md §1 item 10: "
-                                  "pass --no-retrieval")
     if getattr(args, "viz", False):
-        raise NotImplementedError("the live viewer (--viz) is ROADMAP.md §1 item 12")
+        raise NotImplementedError(
+            'the live viewer (--viz) is ROADMAP.md §1 "The rest of the entry points and IO"')
 
     cfg = make_config(args.config)
-    log.info("tpu.placement %r ignored: the port runs on one card (ROADMAP.md §1 item 13)",
+    log.info('tpu.placement %r ignored: the port runs on one card (ROADMAP.md §1 "Multi-GPU placement")',
              cfg["tpu"].get("placement"))
     calib_yaml = None
     if args.calib:
@@ -74,10 +76,11 @@ def run(args, device=None) -> dict:
     # compute knobs first, so the one-time weight cast uses the final types
     model_cfg = loader.apply_model_knobs(mast3r.MASt3RConfig(), cfg)
     model, model_cfg = loader.load_mast3r(args.weights, cfg=model_cfg, device=device)
+    retrieval = None if args.no_retrieval else loader.load_retriever(model_cfg, device=device)
     calib = dataset.camera_intrinsics.K_frame if (cfg["use_calib"] and dataset.has_calib()) else None
 
-    slam = SLAM(cfg, model, (h, w), calib=calib, use_backend=True, use_reloc=False,
-                single_thread=bool(cfg["single_thread"]), device=device,
+    slam = SLAM(cfg, model, (h, w), calib=calib, retrieval_db=retrieval, use_backend=True,
+                use_reloc=retrieval is not None, single_thread=bool(cfg["single_thread"]), device=device,
                 # the reference saves keyframe PNGs with every --save-as run (main.py:332)
                 keep_keyframe_images=bool(args.save_as))
 
@@ -111,14 +114,21 @@ def run(args, device=None) -> dict:
             slam.grab_rgb(pending[1], timestamp=float(pending[0]))
     slam.terminate()
 
-    out = {"retrieval": "none"}
+    retrieval_mode = ("none" if retrieval is None
+                      else "random-fallback" if retrieval.degraded else "real")
+    if retrieval_mode == "random-fallback":
+        print("WARNING: retrieval is running on RANDOM fallback assets — "
+              "loop closures are meaningless; pass --no-retrieval or provide "
+              "the trained retrieval checkpoint+codebook")
+
+    out = {"retrieval": retrieval_mode}
     if args.save_as and dataset.save_results:
         seq = pathlib.Path(args.dataset).name or "seq"
         logdir = pathlib.Path("logs") / args.save_as
         logdir.mkdir(parents=True, exist_ok=True)
         n_live = int(slam.store.n_size)
         meta = {"sequence": seq, "config": str(args.config), "use_calib": bool(cfg["use_calib"]),
-                "retrieval": "none", "frames": slam.frame_count, "keyframes": n_live}
+                "retrieval": retrieval_mode, "frames": slam.frame_count, "keyframes": n_live}
         with open(logdir / f"{seq}.meta.json", "w") as f:
             json.dump(meta, f, indent=1)
         stamps, poses = slam.keyframe_poses()
@@ -143,7 +153,8 @@ def build_parser():
     p.add_argument("--calib", default=None)
     p.add_argument("--save-as", dest="save_as", default=None)
     p.add_argument("--no-viz", action="store_true", default=True)
-    p.add_argument("--viz", action="store_true", help="the live viewer (ROADMAP.md §1 item 12)")
+    p.add_argument("--viz", action="store_true",
+                   help='the live viewer (ROADMAP.md §1 "The rest of the entry points and IO")')
     p.add_argument("--viz-port", type=int, default=8090)
     p.add_argument("--weights", default=None)
     p.add_argument("--no-retrieval", action="store_true")

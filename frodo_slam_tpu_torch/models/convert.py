@@ -127,12 +127,31 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: MASt3RConfig) -> Dict[str, 
     return sd
 
 
+def retrieval_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX retrieval-head params (``retrieval/model.py``: ``prewhiten``,
+    ``projector.layers[i].{lin, ln}``, ``projector.final``, ``postwhiten``;
+    numpy leaves) -> the port's :class:`RetrievalHead` state dict, f32 CPU
+    tensors. The inverse of the JAX ``convert_retrieval_checkpoint``."""
+    params = _to_f32(params)
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("prewhiten", "postwhiten"):
+        sd[f"{name}.m"] = _t(params[name]["m"])
+        sd[f"{name}.p"] = _t(params[name]["p"])
+    proj = params["projector"]
+    for i, layer in enumerate(proj["layers"]):
+        _lin(sd, f"projector.{3 * i}", layer["lin"])
+        _ln(sd, f"projector.{3 * i + 1}", layer["ln"])
+    if proj.get("final") is not None:
+        _lin(sd, f"projector.{3 * len(proj['layers'])}", proj["final"])
+    return sd
+
+
 def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_f32(v) for v in tree]
-    return np.asarray(tree, dtype=np.float32)
+    return None if tree is None else np.asarray(tree, dtype=np.float32)
 
 
 def load_torch_checkpoint(path: str, cfg: MASt3RConfig) -> Dict[str, torch.Tensor]:

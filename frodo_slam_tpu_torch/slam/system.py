@@ -16,12 +16,16 @@ store is written in place; the JAX package's immutable arrays give it that
 snapshot for free) and merges its solved poses back under the lock.
 
 With a calibration (``use_calib`` and ``calib``) the tracker and the window
-solve take the calibrated pixel + log-depth residuals. Not in this slice,
-each raising ``NotImplementedError`` that names its ROADMAP item:
-relocalization with retrieval, the PGO (``local_opt_mode``) and the height
-prior. Each frame costs
-one fetch of the 20-float flags vector plus the tracker's own small fetches;
-each backend solve one small fetch per GN iteration (see global_opt.py).
+solve take the calibrated pixel + log-depth residuals. With a retrieval
+database every keyframe is inserted (the map's first one too, and every
+keyframe carries its index explicitly, ``RetrievalDatabase.kf_ids``), each
+backend task turns the keyframes retrieved for its keyframe into loop-closure
+edges, and a lost frame relocalizes against the retrieved keyframes
+(vio.py:29-72) before the loss counter resets the map. Not in the port yet,
+each raising ``NotImplementedError`` that names its ROADMAP.md §1 item: the
+PGO (``local_opt_mode``) and the height prior. Each frame costs one fetch of
+the 20-float flags vector plus the tracker's own small fetches; each backend
+solve one small fetch per GN iteration (see global_opt.py).
 """
 
 from __future__ import annotations
@@ -67,18 +71,16 @@ class SLAM:
         calib: Optional[np.ndarray] = None,
         retrieval_db=None,
         use_backend: bool = True,
-        use_reloc: bool = False,
+        use_reloc: bool = True,
         single_thread: bool = True,
         local_opt_mode: bool = False,
         device=None,
         keep_keyframe_images: bool = False,
     ):
-        if use_reloc or retrieval_db is not None:
-            raise NotImplementedError("retrieval and relocalization are ROADMAP.md §1 item 10")
         if local_opt_mode:
-            raise NotImplementedError("local_opt_mode (PGO) is ROADMAP.md §1 item 11")
+            raise NotImplementedError('local_opt_mode (PGO) is ROADMAP.md §1 "Frodo extras"')
         if bool(cfg.height_prior.enabled):
-            raise NotImplementedError("the height prior is ROADMAP.md §1 item 11")
+            raise NotImplementedError('the height prior is ROADMAP.md §1 "Frodo extras"')
 
         self.device = resolve_device(device)
         set_f32_contract()
@@ -101,7 +103,9 @@ class SLAM:
         self.img_hw = img_hw
         self.hw = img_hw[0] * img_hw[1]
         self.use_backend = use_backend
+        self.use_reloc = use_reloc
         self.single_thread = single_thread
+        self.retrieval = retrieval_db
 
         t = cfg.tracking
         self.tcfg = TrackingCfg(
@@ -180,9 +184,15 @@ class SLAM:
         # carries its keyframe's consecutive edge and odometry factor.
         # ``backend_queue_max`` is a backlog warning threshold only.
         self._backend_lock = threading.Lock()  # guards store, active_kf, current pose
-        # held by the worker around each task: relocalization (ROADMAP §1
-        # item 10) waits out the in-flight task under it, not the backlog
+        # held by the worker around each task: relocalization waits out the
+        # in-flight task under it, never the pending backlog (the reference
+        # backend services RELOC before popping optimizer tasks, vio.py:102-107)
         self._backend_exec_lock = threading.Lock()
+        # held by a relocalization from its start: the worker starts no new
+        # task past it, so the relocalization runs right after the in-flight
+        # task however the threads are scheduled (a lock hands over in no
+        # fixed order: the worker could take the exec lock again first)
+        self._reloc_gate = threading.Lock()
         self._backend_tasks: queue.Queue = queue.Queue()
         self._backend_queue_max = int(cfg.tpu.get("backend_queue_max", 8))
         self._backend_worker: Optional[threading.Thread] = None
@@ -202,10 +212,11 @@ class SLAM:
 
     def reset(self):
         """Full map reset on tracking loss (vio.py:258-277): new keyframe
-        buffer, backend cleared, mode back to INIT. The finished map is kept
-        in ``self.atlas`` (main.py:227-239). Pending backend tasks reference
-        the dead map: they are discarded, the in-flight one is waited out
-        (its merge is dropped by the epoch guard)."""
+        buffer, backend and retrieval cleared, mode back to INIT. The
+        finished map is kept in ``self.atlas`` (main.py:227-239). Pending
+        backend tasks reference the dead map: they are discarded, the
+        in-flight one is waited out (its merge is dropped by the epoch
+        guard)."""
         self._join_backend(discard_pending=True)
         self._map_epoch += 1
         if self.store.n_size > 0:
@@ -218,6 +229,8 @@ class SLAM:
         self.store = self._new_store()
         if self.backend is not None:
             self.backend.reset()
+        if self.retrieval is not None:
+            self.retrieval.reset()
         self.mode = Mode.INIT
         self.loss_track_counter = 0
         self.kf_timestamps = []
@@ -268,6 +281,8 @@ class SLAM:
             try:
                 if task is None:
                     return
+                with self._reloc_gate:
+                    pass
                 with self._backend_exec_lock:
                     self._backend_step(*task)
             except Exception:
@@ -334,6 +349,10 @@ class SLAM:
             self.store = frame_mod.kf_append(self.store, frame)
         self.kf_timestamps.append(timestamp)
         self._capture_kf_image(frame)
+        if self.retrieval is not None:
+            self.retrieval.update(frame.feat, add_after_query=True, k=int(self.cfg.retrieval.k),
+                                  min_thresh=float(self.cfg.retrieval.min_thresh),
+                                  kf_id=len(self.kf_timestamps) - 1)
         self.mode = Mode.TRACKING
         self.current_T_WC = frame.T_WC.cpu().numpy()
 
@@ -435,7 +454,15 @@ class SLAM:
             log.info("tracking failed at t=%.3f (consecutive losses: %d, "
                      "match_frac=%.4f)", timestamp, self.loss_track_counter,
                      float(flags[0]))
-            if self.loss_track_counter >= int(self.cfg.tracking.new_map_after_loss_track_N):
+            relocalized = False
+            if (self.use_reloc and self.retrieval is not None and self.backend is not None
+                    and len(self.kf_timestamps) > 1):
+                relocalized = self._relocalize(frame, timestamp)
+            if relocalized:
+                log.info("relocalized at t=%.3f", timestamp)
+                self.loss_track_counter = 0
+                ok = True
+            elif self.loss_track_counter >= int(self.cfg.tracking.new_map_after_loss_track_N):
                 self.reset()
                 self.init_tracking(frame, timestamp)
                 self.frame_count += 1
@@ -486,7 +513,14 @@ class SLAM:
             epoch = self._map_epoch
 
         kf_set = {idx - 1} if idx >= 1 else set()
-        if pair_half is not None and (idx - 1) in kf_set:
+        if self.retrieval is not None:
+            # the keyframes retrieved for this one become loop-closure edges
+            feat = store.feat[idx % store.capacity][None]
+            kf_set.update(self.retrieval.update(
+                feat, add_after_query=True, k=int(self.cfg.retrieval.k),
+                min_thresh=float(self.cfg.retrieval.min_thresh), kf_id=idx))
+            kf_set.discard(idx)
+        if pair_half is not None and idx >= 1 and (idx - 1) in kf_set:
             # the tracker already decoded and matched its direction of this
             # consecutive pair: only the missing direction is computed
             self.backend.add_consecutive_half(store, idx - 1, idx, pair_half)
@@ -546,6 +580,54 @@ class SLAM:
                 target=self._backend_worker_loop, daemon=True, name="frodo-backend")
             self._backend_worker.start()
         self._backend_tasks.put((idx, odom_factor, pair_half))
+
+    # -- relocalization ---------------------------------------------------------
+
+    def _relocalize(self, frame: frame_mod.Frame, timestamp: float) -> bool:
+        """Retrieval-seeded relocalization (vio.py:29-72): append the lost
+        frame as a tentative keyframe, gate its edges to the retrieved
+        keyframes strictly, pop it on failure; on success seed its pose
+        from the first retrieved keyframe and solve the window.
+
+        Runs on the frontend thread under the worker's per-task lock, so it
+        waits out only the task in flight and preempts the pending backlog
+        (``_reloc_gate`` keeps the worker from starting another task first).
+        The pending tasks stay valid: relocalization appends a keyframe and
+        resets nothing, and retrieval ids are explicit (``kf_ids``), so the
+        out-of-order insertion cannot skew later retrievals."""
+        with self._reloc_gate, self._backend_exec_lock, self._backend_lock:
+            rcfg = self.cfg.retrieval
+            retrieved = self.retrieval.update(frame.feat, add_after_query=False, k=int(rcfg.k),
+                                              min_thresh=float(rcfg.min_thresh))
+            if not retrieved:
+                return False
+            self.store = frame_mod.kf_append(self.store, frame)
+            self.kf_timestamps.append(timestamp)
+            n_kf = len(self.kf_timestamps)
+            ok = self.backend.add_factors(
+                self.store, [n_kf - 1] * len(retrieved), list(retrieved),
+                min_match_frac=float(self.cfg.reloc.min_match_frac),
+                is_reloc=bool(self.cfg.reloc.strict))
+            if not ok:
+                # pop the tentative keyframe (vio.py:63-65)
+                self.store.n_total -= 1
+                self.store.n_size -= 1
+                self.kf_timestamps.pop()
+                return False
+            self._capture_kf_image(frame)
+            self.retrieval.update(frame.feat, add_after_query=True, k=int(rcfg.k),
+                                  min_thresh=float(rcfg.min_thresh), kf_id=n_kf - 1)
+            # seed the pose from the first retrieved keyframe (vio.py:66)
+            last = self.store.last_slot()
+            seed = self.store.T_WC[int(retrieved[0]) % self.store.capacity].clone()
+            frame_mod.kf_update_T_WCs(self.store, seed[None], [last])
+            win = self._solve_window(self.store)
+            if win is not None:
+                self.backend._write_back(self.store, *win)
+            T_WC = self.store.T_WC[last].clone()
+            self.current_T_WC = T_WC.cpu().numpy()
+            self.active_kf = dataclasses.replace(frame, T_WC=T_WC)
+        return True
 
     # -- export -----------------------------------------------------------------
 

@@ -188,5 +188,5 @@ def test_subsample(tmp_path):
 
 @pytest.mark.parametrize("path", ["data/realsense", "data/webcam", "data/clip.mp4", "data/clip.MOV"])
 def test_live_and_video_inputs_name_their_roadmap_item(path):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="The rest of the entry points and IO"):
         tds.load_dataset(path)

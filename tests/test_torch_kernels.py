@@ -495,3 +495,54 @@ def test_attention_kernel_takes_strided_views_and_rejects_bad_inputs(card):
     big = torch.zeros((1, 1, 8, 136), device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         ak.flash_attention(big, big, big)
+
+
+@pytest.mark.cuda
+def test_retrieval_on_card_matches_cpu(card):
+    """The retrieval head and the codebook quantization (f32 products, TF32
+    off) on the card against the same on the CPU: attention within 1e-5
+    relative and whitened projections within 1e-4, the top-300 the same but
+    for swapped near ties; word indices equal but for near ties (both
+    distances within 1e-5 relative); a database on each device returns the
+    same keyframes."""
+    from frodo_slam_tpu_torch.retrieval.asmk import Codebook
+    from frodo_slam_tpu_torch.retrieval.database import RetrievalDatabase
+    from frodo_slam_tpu_torch.retrieval.model import RetrievalHead, how_select_local, projector
+    from frodo_slam_tpu_torch.utils.device import set_f32_contract
+
+    set_f32_contract()
+    dbs = []
+    for dev in ("cpu", card):
+        head = RetrievalHead.init(torch.Generator().manual_seed(1), 1024, [1024], 300, device=dev)
+        cb = Codebook.random(np.random.default_rng(0), 65536, 1024, device=dev)
+        dbs.append(RetrievalDatabase(head, cb))
+    rng = np.random.default_rng(3)
+    feats = [rng.normal(size=(1, 576, 1024)).astype(np.float32) for _ in range(4)]
+
+    def parts(head, x):
+        proj = projector(head.projector, head.prewhiten(x))
+        return torch.linalg.norm(proj, dim=-1)[0].cpu(), head.postwhiten(proj)[0].cpu()
+
+    (a_c, p_c), (a_g, p_g) = parts(dbs[0].head, torch.from_numpy(feats[0])), \
+        parts(dbs[1].head, torch.from_numpy(feats[0]).to(card))
+    torch.testing.assert_close(a_g, a_c, rtol=1e-5, atol=0)
+    torch.testing.assert_close(p_g, p_c, rtol=0, atol=1e-4)
+    _, _, i_c = how_select_local(p_c[None], a_c[None], 300)
+    _, _, i_g = how_select_local(p_g[None], a_g[None], 300)
+    swapped = i_c[0] != i_g[0]
+    torch.testing.assert_close(a_c[i_g[0][swapped]], a_c[i_c[0][swapped]], rtol=1e-5, atol=0)
+
+    f_cpu = dbs[0].head.prep_features(torch.from_numpy(feats[0]))[0]
+    i_cpu, i_card = dbs[0].codebook.quantize(f_cpu, 5), dbs[1].codebook.quantize(f_cpu, 5)
+    diff = i_cpu != i_card
+    if diff.any():
+        c = dbs[0].codebook.centroids.astype(np.float64)
+        q = f_cpu.numpy().astype(np.float64)
+        rows, cols = np.nonzero(diff)
+        d = lambda idx: ((q[rows] - c[idx[rows, cols]]) ** 2).sum(-1)  # noqa: E731
+        np.testing.assert_allclose(d(i_card), d(i_cpu), rtol=1e-5)
+    assert diff.mean() < 0.01
+    for i, f in enumerate(feats + [feats[1] + 0.01 * rng.normal(size=feats[1].shape).astype(np.float32)]):
+        got = [db.update(torch.from_numpy(f).to(db.codebook.device), True, k=3, min_thresh=5e-3, kf_id=i)
+               for db in dbs]
+        assert got[0] == got[1], (i, got)

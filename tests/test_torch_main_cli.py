@@ -20,6 +20,7 @@ random route honours ``FRODO_ENTRY_TINY`` and ``FRODO_RANDOM_SHARE_DECODER``;
 ``apply_model_knobs`` reads every config as the JAX package does.
 """
 
+import json
 import pathlib
 import types
 
@@ -110,6 +111,14 @@ CASES = {
 }
 
 
+def _tiny_load(real):
+    def load(path, **kw):
+        ds = real(path, **kw)
+        ds.img_size = 64  # 64-pixel long edge instead of 512
+        return ds
+    return load
+
+
 def _run_both(tmp_path, monkeypatch, weights, case):
     params, jcfg, model, tcfg = weights
     make, parent, with_calib, extra = CASES[case]
@@ -121,15 +130,8 @@ def _run_both(tmp_path, monkeypatch, weights, case):
         calib = tmp_path / "calib.yaml"
         calib.write_text("width: 64\nheight: 32\ncalibration: [60.0, 60.0, 32.0, 16.0]\n")
 
-    def tiny_load(real):
-        def load(path, **kw):
-            ds = real(path, **kw)
-            ds.img_size = 64  # 64-pixel long edge instead of 512
-            return ds
-        return load
-
-    monkeypatch.setattr(tds, "load_dataset", tiny_load(tds.load_dataset))
-    monkeypatch.setattr(jdata_pkg, "load_dataset", tiny_load(jdata_pkg.load_dataset))
+    monkeypatch.setattr(tds, "load_dataset", _tiny_load(tds.load_dataset))
+    monkeypatch.setattr(jdata_pkg, "load_dataset", _tiny_load(jdata_pkg.load_dataset))
     monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, tcfg))
     monkeypatch.setattr(jloader, "load_mast3r", lambda *a, **k: (params, jcfg))
     created = []
@@ -181,13 +183,37 @@ def test_port_runner_matches_jax_runner(tmp_path, monkeypatch, weights, case):
     assert meta.exists() and meta.read_text() == pathlib.Path(j["traj"]).with_suffix(".meta.json").read_text()
 
 
-def test_runner_refuses_what_later_slices_bring(tmp_path):
-    base = dict(dataset=str(tmp_path), config=str(ROOT / "configs/base.yaml"), calib=None,
-                save_as=None, weights=None, max_frames=None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmain.run(types.SimpleNamespace(**base, no_retrieval=False, viz=False), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmain.run(types.SimpleNamespace(**base, no_retrieval=True, viz=True), device="cpu")
+def test_runner_refuses_what_later_slices_bring(tmp_path, monkeypatch, weights):
+    """Retrieval is ported: without ``--no-retrieval`` the runner takes the
+    random head + codebook fallback, relocalizes, and records it in the meta
+    file. ``--viz`` still raises, naming its ROADMAP item."""
+    _, _, model, tcfg = weights
+    seq = _folder(tmp_path)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(f'inherit: "{ROOT / "configs/base.yaml"}"\n{OVERRIDES}')
+    monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, tcfg))
+    monkeypatch.setattr(tds, "load_dataset", _tiny_load(tds.load_dataset))
+    created = []
+
+    class SpySLAM(tsystem.SLAM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            created.append(self)
+
+    monkeypatch.setattr(tsystem, "SLAM", SpySLAM)
+    monkeypatch.chdir(tmp_path)
+    base = dict(dataset=str(seq), config=str(cfg), calib=None, weights=None, max_frames=None)
+    with pytest.warns(UserWarning, match="random retrieval head"):
+        out = tmain.run(types.SimpleNamespace(**base, save_as="ret", no_retrieval=False, viz=False),
+                        device="cpu")
+    assert out["retrieval"] == "random-fallback"
+    meta = json.loads((tmp_path / "logs" / "ret" / f"{seq.name}.meta.json").read_text())
+    assert meta["retrieval"] == "random-fallback" and meta["keyframes"] == 4
+    slam, = created
+    assert slam.retrieval is not None and slam.use_reloc and slam.retrieval.degraded
+    assert slam.retrieval.kf_counter == 4  # every keyframe inserted
+    with pytest.raises(NotImplementedError, match="The rest of the entry points and IO"):
+        tmain.run(types.SimpleNamespace(**base, save_as=None, no_retrieval=True, viz=True), device="cpu")
 
 
 def test_cli_parser_matches_jax():

@@ -20,6 +20,7 @@ from frodo_slam_tpu.config import make_config as j_make_config
 from frodo_slam_tpu.data.image import resize_img as j_resize_img
 from frodo_slam_tpu.models import mast3r as jmast3r
 from frodo_slam_tpu.slam.system import SLAM as JSLAM
+from frodo_slam_tpu_torch import loader as tloader
 from frodo_slam_tpu_torch.config import make_config as t_make_config
 from frodo_slam_tpu_torch.data.image import resize_img as t_resize_img
 from frodo_slam_tpu_torch.models import convert as tconvert
@@ -132,11 +133,19 @@ def test_unported_options_raise(weights):
     params, _ = weights
     model = tmast3r.MASt3R(tmast3r.tiny_config())
     cfg = t_make_config()
-    for kw in ({"use_reloc": True}, {"retrieval_db": object()}, {"local_opt_mode": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSLAM(cfg, model, (H, W), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "Frodo extras"'):
+        TSLAM(cfg, model, (H, W), device="cpu", local_opt_mode=True)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "Frodo extras"'):
         TSLAM(t_make_config(height_prior={"enabled": True}), model, (H, W), device="cpu")
+    # retrieval and relocalization are ported: a database builds, reloc on by default
+    db = tloader.load_retriever(tmast3r.tiny_config(), path="no/such/retrieval.pth", device="cpu")
+    slam = TSLAM(cfg, model, (H, W), retrieval_db=db, use_reloc=True, device="cpu")
+    assert slam.retrieval is db and slam.use_reloc
+    assert TSLAM(cfg, model, (H, W), device="cpu").use_reloc
+    slam.grab_rgb(_imgs()[0], timestamp=0.0)  # map init inserts the first keyframe
+    assert db.kf_counter == 1 and db.kf_ids == [0]
+    slam.reset()  # a map reset clears the database
+    assert db.kf_counter == 0 and db.kf_ids == [] and db.ivf.n_images == 0
     # the calibrated tracker and solve are ported: a calibration now builds
     slam = TSLAM(t_make_config(use_calib=True), model, (H, W), calib=np.eye(3), device="cpu")
     assert slam.tcfg.use_calib and tuple(slam.K.shape) == (3, 3)
