@@ -39,7 +39,14 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      the card vs the same on the CPU: flags equal, keyframe poses atol 1e-4;
   9. calib_tiny: the same with a calibration (calibrated tracker and window
      solve): flags equal, keyframe poses atol 1e-4, no ray-kernel launch;
- 10. backend_main: ViT-L 288x512 with shared heads and decoders (so that
+ 10. vio_tiny: SLAM(local_opt_mode=True) at tiny_config with the height
+     prior on, twelve identical frames and 1 cm of odometry a frame, on the
+     card vs the CPU: flags equal, keyframe poses and scale channels atol
+     1e-4, the PGO's solve within 1e-6 of its ring solved on the CPU and
+     the run's PGO scale within 1e-4 relative; one more window solve with
+     explicit live scale targets (atol 1e-4); a checkpoint round trip on the
+     card;
+ 11. backend_main: ViT-L 288x512 with shared heads and decoders (so that
      identical frames track), 12 identical frames, every frame a keyframe,
      production capacities, an odometry pose per frame, once serialized and
      once threaded; then one add_factors of two pairs (one a loop closure)
@@ -47,7 +54,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      (serialized run only: its stages are timed between syncs), GN
      iterations and ray-kernel launches per solve, edges, peak memory; any
      backend task that failed (the worker logs it) fails the phase;
- 11. dataset_main: the dataset runner, ``frodo_slam_tpu_torch.main.run``,
+ 12. dataset_main: the dataset runner, ``frodo_slam_tpu_torch.main.run``,
      on a TUM fr1 sequence that this script writes (24 identical 640x480
      PNGs under build/chip_smoke/), with a config that inherits
      configs/eval_calib.yaml (calibrated tracker and backend, subsample 2,
@@ -55,7 +62,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      512x384 with shared random decoders, --no-retrieval --save-as: finite
      trajectory rows, the .ply, one PNG per keyframe; per-frame and
      per-solve ms, edge rows per window, peak memory;
- 12. reloc_main: retrieval loop closure and relocalization through threaded
+ 13. reloc_main: retrieval loop closure and relocalization through threaded
      SLAM(use_backend=True, use_reloc=True) at ViT-L 288x512 (shared random
      decoders), the retrieval head at 1024 -> 1024 with nfeat 300 and a
      random codebook of 65,536 words (256 MiB on the card): a camera panning
@@ -68,15 +75,25 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      against their numpy plain versions at the query's shapes. Per-keyframe
      retrieval ms split into query and insert, relocalization ms, loop
      edges, launches;
- 13. synthetic: the port's oracle harness (``python -m
+ 14. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
+     on a recorded session that this script writes under build/chip_smoke/
+     (16 identical 360x640 BGR frames, an odometry pose per frame,
+     --use_odometry, every_n_frames 1), ViT-L at 288x512 with shared random
+     decoders, a config that inherits configs/base_no_fnn.yaml, threaded,
+     every frame a keyframe, the height prior on: finite metric keyframe
+     poses, odometry factors, every kernel launched, no failed backend
+     task; per-frame and per-task ms, the PGO's ms and live count, plane
+     fits (rows, ms, live targets), peak memory;
+ 15. synthetic: the port's oracle harness (``python -m
      frodo_slam_tpu_torch.tools.eval_synthetic --device cuda``) in
      subprocesses: the straight row (10 frames at 3 mm), the --per-frame row
      (warm frames) and the loop row (14 frames at 4 mm, with and without
-     retrieval), each held to the JAX package's bars; ATEs and launches;
- 14. the script's wall time; the kernels line; the device line (last line
+     retrieval) and the VIO row (16 frames at 2 mm, with and without
+     odometry), each held to the JAX package's bars; ATEs and launches;
+ 16. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
-On every path (6, 10, 11, 12 and 13) the kernel launch counters are zeroed
+On every path (6, 11, 12, 13, 14 and 15) the kernel launch counters are zeroed
 just before it and read just after; each path must launch each of its
 kernels (the oracle of 13 replaces the model: no attention there).
 Its peak memory window starts after a garbage collection, and the bytes
@@ -88,6 +105,7 @@ nonzero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import logging
@@ -553,6 +571,98 @@ def phase_calib_tiny():
     np.testing.assert_allclose(P_g, P_c, atol=1e-4)
 
 
+# the VIO mode at tiny_config: every frame a keyframe, odometry moving 1 cm a
+# frame (the frames stay identical), the tracking GN run to its fixed point
+# (with the default stopping rule the two devices may stop an iteration
+# apart), the height prior on
+VIO_TINY_CFG = dict(
+    tracking={**FORCE_KEYFRAMES["tracking"], "max_iters": 30, "rel_error": 1e-9, "delta_norm": 1e-9},
+    local_opt={**FORCE_KEYFRAMES["local_opt"], "max_iters": 2},
+    height_prior={"enabled": True, "ransac_iters": 50},
+    tpu={"max_keyframes": 16, "max_edges": 16, "max_odom_edges": 16})
+
+
+def _vio_odom(i, step=0.01):
+    return np.array([step * i, 0.2 * step * i, 0.0, 0.0, 0.0, 0.0, 1.0], np.float32)
+
+
+def _tiny_vio(device, work):
+    """Twelve identical frames through SLAM(local_opt_mode=True) (the PGO
+    goes live at the eleventh keyframe), then one window solve with explicit
+    live scale targets, then a checkpoint round trip on ``device``."""
+    from frodo_slam_tpu_torch.utils.checkpoint import load_slam_state, save_slam_state
+
+    model = _tiny_model(device)
+    h, w = 32, 64
+    img = np.random.default_rng(2).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    build = lambda: SLAM(make_config(**VIO_TINY_CFG), model, (h, w), use_backend=True,  # noqa: E731
+                         single_thread=True, local_opt_mode=True, device=device)
+    slam = build()
+    flags = [slam.grab_rgb(img, timestamp=float(i), odom_pose=_vio_odom(i))[::2] for i in range(12)]
+    poses = slam.keyframe_poses()[1]
+    s = float(slam.pgo.scale[0, 0])
+    # the PGO solve alone: this device's ring solved again on the CPU
+    from frodo_slam_tpu_torch.slam import pgo as pgo_mod
+
+    ring = dataclasses.replace(slam.pgo, **{f: getattr(slam.pgo, f).cpu() for f in ("Twc", "Todom", "scale")})
+    s_ring = float(pgo_mod.pgo_optimize(ring)[1])
+    n = slam.store.n_size
+    s_bar = np.where(np.arange(n) % 2 == 1, 0.8, -1.0).astype(np.float32)  # every other target live
+    uniq, p, T_new = slam.backend.solve_window_rays(slam.store, s_bar)
+    extra = T_new[:p].cpu().numpy()
+    ckpt = save_slam_state(slam, str(work / f"vio_tiny_{device.type}.npz"))
+    back = build()
+    load_slam_state(back, ckpt)
+    same = (all(torch.equal(getattr(back.store, f), getattr(slam.store, f))
+                for f in ("T_WC", "X_canon", "C", "feat", "N", "N_updates"))
+            and all(torch.equal(a, b) for a, b in zip(back.backend.edges + back.backend.odom,
+                                                      slam.backend.edges + slam.backend.odom))
+            and all(torch.equal(getattr(back.pgo, f), getattr(slam.pgo, f)) for f in ("Twc", "Todom", "scale"))
+            and back.backend._pairs == slam.backend._pairs and back.pgo.n_total == slam.pgo.n_total)
+    resumed = back.grab_rgb(img, timestamp=12.0, odom_pose=_vio_odom(12))
+    slam.terminate()
+    back.terminate()
+    return dict(flags=flags, poses=poses, s=s, s_ring=s_ring, extra=extra, uniq=uniq[:p], roundtrip=same,
+                resumed_ok=bool(resumed[0]) and bool(np.isfinite(resumed[1]).all()),
+                fits=len(slam._hp_cache))
+
+
+def phase_vio_tiny(work=None):
+    """The VIO mode (odometry factors, scale-only PGO, height prior) at
+    tiny_config on the card against the same on the CPU; an explicit
+    scale-target solve; a checkpoint round trip on the card. The PGO's
+    solve on the card is held within 1e-6 of the same ring solved on the
+    CPU; the scale each device's run ends with within 1e-4 relative, the
+    relative bar of the poses: it is a ratio of the VO deltas the poses
+    carry, and those differ by the f32 ray sums of the window solves
+    (~2e-6 a solve)."""
+    work = pathlib.Path(work or ROOT / "build" / "chip_smoke")
+    work.mkdir(parents=True, exist_ok=True)
+    before = read_counts()
+    g = _tiny_vio(DEV, work)
+    launched = {k: v - before[k] for k, v in read_counts().items()}
+    c = _tiny_vio(torch.device("cpu"), work)
+    r = dict(flags_cuda=g["flags"], flags_cpu=c["flags"], pgo_s_cuda=g["s"], pgo_s_cpu=c["s"],
+             pgo_s_cuda_ring_on_cpu=g["s_ring"],
+             pose_max_abs_diff=float(np.abs(g["poses"] - c["poses"]).max()),
+             scale_max_abs_diff=float(np.abs(g["poses"][:, 7] - c["poses"][:, 7]).max()),
+             extra_solve_max_abs_diff=float(np.abs(g["extra"] - c["extra"]).max()),
+             checkpoint_roundtrip_cuda=g["roundtrip"], resumed_ok=g["resumed_ok"], plane_fits=g["fits"],
+             launches=launched)
+    emit("vio_tiny", **r)
+    assert g["flags"] == c["flags"] and all(f == (True, True) for f in g["flags"]), (g["flags"], c["flags"])
+    assert g["s"] != 1.0, "the PGO never went live"
+    np.testing.assert_allclose(g["s"], g["s_ring"], rtol=1e-6)
+    np.testing.assert_allclose(g["s"], c["s"], rtol=1e-4)
+    assert np.isfinite(g["poses"]).all() and np.abs(g["poses"][1:, 7] - 1.0).max() > 1e-3
+    np.testing.assert_allclose(g["poses"], c["poses"], atol=1e-4)
+    assert g["uniq"] == c["uniq"]
+    np.testing.assert_allclose(g["extra"], c["extra"], atol=1e-4)
+    assert g["roundtrip"] and c["roundtrip"] and g["resumed_ok"]
+    assert launched["ray_edge_systems"] > 0 and launched["refine_matches"] > 0, launched
+    return r
+
+
 def _instrument(slam, rec, timed):
     """Count GN iterations and ray-kernel launches per solve, on whichever
     thread runs it; with ``timed``, also time each backend stage between
@@ -749,6 +859,142 @@ def phase_dataset_main(n_images=24, work=None):
 
 
 # ---------------------------------------------------------------------------
+# vio_main: the robot VIO runner on a recorded session at full width
+# ---------------------------------------------------------------------------
+
+def _write_session(path: pathlib.Path, n_frames: int, h=360, w=640):
+    """A recorded robot session as ``OdometryData`` reads it: identical
+    360x640 BGR frames (16:9, so the runner's resize gives 288x512) and a
+    metric SE(3) odometry pose per frame, 5 cm forward each."""
+    import pickle
+
+    img = (smooth_random_frames(1, h, w, seed=3)[0][:, :, ::-1] * 255).astype(np.uint8)
+    rows = [{"timestamp": 0.1 * i, "frame": img, "pose": _vio_odom(i, step=0.05)} for i in range(n_frames)]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(rows, f)
+
+
+def phase_vio_main(n_frames=16, work=None):
+    """``python -m frodo_slam_tpu_torch.run_vio --dataset <session> --use_odometry
+    --every_n_frames 1 --no-retrieval`` as ``run_vio.run_dataset``, ViT-L at
+    288x512 with shared random decoders, a config that inherits
+    configs/base_no_fnn.yaml (run_vio's default), threaded (as the robot
+    runs), every tracked frame a keyframe, the height prior on. Per-frame and
+    per-task ms (host clock; a task ends in its solve's fetches), the PGO's
+    ms a keyframe (host, and synced on the final ring), its live count, the
+    plane fits (rows fetched, ms, live targets), peak memory."""
+    from frodo_slam_tpu_torch import run_vio
+    from frodo_slam_tpu_torch.slam import pgo as pgo_mod
+    from frodo_slam_tpu_torch.slam import system as system_mod
+    from frodo_slam_tpu_torch.slam.height_prior import RectanglePlaneEstimator
+
+    work = pathlib.Path(work or ROOT / "build" / "chip_smoke")
+    session = work / "vio" / "session_mini.pkl"
+    _write_session(session, n_frames)
+    cfg = work / "vio_smoke.yaml"
+    over = dict(FORCE_KEYFRAMES, height_prior={"enabled": True})
+    cfg.write_text("\n".join([f'inherit: "{ROOT / "configs" / "base_no_fnn.yaml"}"', "single_thread: false"]
+                             + [f"{k}: {json.dumps(v)}" for k, v in over.items()]) + "\n")
+    args = types.SimpleNamespace(dataset=str(session), config=str(cfg), calib=None, weights=None,
+                                 no_retrieval=True, use_odometry=True, wall_clock=False, every_n_frames=1,
+                                 visualize=False, use_multiple_gpu=False)
+    rec = dict(frame_ms=[], task_ms=[], pgo_host_ms=[], pgo_ok=[], fit_rows=[], fit_ms=[], targets=[])
+    real = dict(grab=SLAM.grab_rgb, task=SLAM._backend_step, pgo=SLAM._pgo_step, sbar=SLAM._height_prior_s_bar,
+                fit=RectanglePlaneEstimator.run_points, opt=system_mod.pgo_optimize)
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            rec[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    def opt(state):
+        out = real["opt"](state)
+        rec["pgo_ok"].append(out[2])  # read after the run: no fetch here
+        return out
+
+    def fit(self, pts, idx=None):
+        rec["fit_rows"].append(int(np.asarray(pts).shape[0]))
+        return real["fit"](self, pts, idx)
+
+    def sbar(self, store, *a):
+        t = time.perf_counter()
+        out = real["sbar"](self, store, *a)
+        rec["fit_ms"].append((time.perf_counter() - t) * 1e3)
+        rec["targets"].append(None if out is None else [float(x) for x in out])
+        return out
+
+    failures = _Failures()
+    logging.getLogger("frodo_slam_tpu_torch").addHandler(failures)
+    SLAM.grab_rgb, SLAM._backend_step, SLAM._pgo_step = (timed("frame_ms", real["grab"]),
+                                                         timed("task_ms", real["task"]),
+                                                         timed("pgo_host_ms", real["pgo"]))
+    SLAM._height_prior_s_bar, RectanglePlaneEstimator.run_points, system_mod.pgo_optimize = sbar, fit, opt
+    env = os.environ.get("FRODO_RANDOM_SHARE_DECODER")
+    os.environ["FRODO_RANDOM_SHARE_DECODER"] = "1"  # identical frames track (loader.py)
+    try:
+        at_start = reset_peak()
+        zero_counts()
+        t0 = time.perf_counter()
+        slam = run_vio.run_dataset(args, device=DEV)  # terminated: the worker has drained
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        SLAM.grab_rgb, SLAM._backend_step, SLAM._pgo_step = real["grab"], real["task"], real["pgo"]
+        SLAM._height_prior_s_bar, RectanglePlaneEstimator.run_points = real["sbar"], real["fit"]
+        system_mod.pgo_optimize = real["opt"]
+        logging.getLogger("frodo_slam_tpu_torch").removeHandler(failures)
+        if env is None:
+            os.environ.pop("FRODO_RANDOM_SHARE_DECODER", None)
+        else:
+            os.environ["FRODO_RANDOM_SHARE_DECODER"] = env
+    peak = torch.cuda.max_memory_allocated()
+    stamps, metric = slam.metric_keyframe_poses()
+    poses = slam.keyframe_poses()[1]
+    # the PGO on the final ring, synced: what a keyframe pays on the card
+    ring = dataclasses.replace(slam.pgo, **{f: getattr(slam.pgo, f).clone() for f in ("Twc", "Todom", "scale")})
+    T_copy = slam.store.T_WC.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(20):
+        pgo_mod.pgo_add_frame(ring, torch.as_tensor(slam.current_T_WC), torch.as_tensor(_vio_odom(n_frames + i)))
+        _, s_k, ok_k = pgo_mod.pgo_optimize(ring)
+        pgo_mod.apply_pgo_scale_(T_copy, slam.store.n_size, s_k, ok_k)
+    torch.cuda.synchronize()
+    pgo_synced_ms = (time.perf_counter() - t0) * 1e3 / 20
+    live = [x for row in rec["targets"] if row for x in row if x > 0]
+    r = dict(frames=len(rec["frame_ms"]), image_hw=list(slam.img_hw), keyframes=len(stamps), run_s=run_s,
+             frame_ms=[round(x, 3) for x in rec["frame_ms"]],
+             median_frame_ms_after_first=statistics.median(rec["frame_ms"][1:]),
+             task_ms=[round(x, 3) for x in rec["task_ms"]], median_task_ms=statistics.median(rec["task_ms"]),
+             pgo_host_ms=[round(x, 3) for x in rec["pgo_host_ms"]], pgo_synced_ms=pgo_synced_ms,
+             pgo_capacity=slam.pgo.capacity, pgo_ok=sum(bool(o) for o in rec["pgo_ok"]),
+             pgo_keyframes=len(rec["pgo_ok"]), pgo_scale=float(slam.pgo.scale[0, 0]),
+             plane_fits=len(rec["fit_rows"]), fit_rows=sorted(set(rec["fit_rows"])),
+             fit_task_ms=[round(x, 3) for x in rec["fit_ms"]], live_targets=len(live),
+             odometry_factors=len(slam.backend._odom_pairs), pairs=len(slam.backend._pairs),
+             scale_channel=[round(float(x), 6) for x in poses[:, 7]], launches=launches,
+             max_memory_allocated=peak, allocated_at_start=at_start,
+             backend_task_failures=failures.records)
+    emit("vio_main", **r)
+    assert not failures.records, f"backend tasks failed: {failures.records}"
+    assert slam.local_opt_mode and tuple(slam.img_hw) == (288, 512)
+    assert r["frames"] == n_frames and len(stamps) == n_frames, (r["frames"], len(stamps))
+    assert np.isfinite(metric).all() and np.isfinite(poses).all()
+    assert r["odometry_factors"] > 0 and r["pgo_keyframes"] == n_frames - 1
+    assert r["plane_fits"] > 0 and max(r["fit_rows"]) <= 1000
+    for name in WRAPPERS:
+        assert launches[name] > 0, f"vio_main never launched {name}"
+    del slam
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------------------
 # reloc_main: retrieval loop closure and relocalization at full width
 # ---------------------------------------------------------------------------
 
@@ -907,7 +1153,8 @@ def phase_reloc_main(h=288, w=512):
 
 SYNTH_ROWS = [("straight", ["--frames", "10", "--noise", "0.003"]),
               ("per_frame", ["--per-frame", "--frames", "10", "--noise", "0.003"]),
-              ("loop", ["--loop", "--frames", "14", "--noise", "0.004"])]
+              ("loop", ["--loop", "--frames", "14", "--noise", "0.004"]),
+              ("vio", ["--vio", "--frames", "16", "--noise", "0.002"])]
 
 
 def phase_synthetic():
@@ -927,13 +1174,17 @@ def phase_synthetic():
             launches[k] += v
         rows[name] = out
         emit("synthetic", row=name, **out)
-    s, pf, lp = rows["straight"], rows["per_frame"], rows["loop"]
+    s, pf, lp, vio = rows["straight"], rows["per_frame"], rows["loop"], rows["vio"]
     on, off = lp["loop"], lp["no_retrieval"]
     assert s["frames_tracked_ok"] == 10 and s["n_kf"] == 10 and s["ate_rmse"] < 0.05, s
     assert pf["frames_tracked_ok"] == 10 and pf["n_kf"] < 10 and pf["ate_rmse"] < 0.05, pf
     assert on["frames_tracked_ok"] == off["frames_tracked_ok"] == 14, lp
     assert on["n_long_loop_edges"] >= 1 and off["n_loop_edges"] == 0, lp
     assert on["ate_rmse"] <= off["ate_rmse"] * 1.05, lp
+    v_on, v_off = vio["vio"], vio["no_odom"]  # tests/test_synthetic_e2e.py:126-134
+    assert v_on["frames_tracked_ok"] == v_off["frames_tracked_ok"] == 16, vio
+    assert v_on["ate_sim3"] < 0.03 and v_on["ate_se3_scaled"] < 0.06, vio
+    assert v_on["ate_se3_scaled"] < 0.5 * v_off["ate_se3_scaled"], vio
     assert launches["refine_matches"] > 0 and launches["ray_edge_systems"] > 0, launches
     return rows, launches
 
@@ -950,9 +1201,11 @@ def main():
     per_ray = phase_ray_reduce()
     phase_backend_tiny()
     phase_calib_tiny()
+    phase_vio_tiny()
     ser, thr = phase_backend_main()
     ds = phase_dataset_main()
     reloc = phase_reloc_main()
+    vio = phase_vio_main()
     _, synth = phase_synthetic()
     # the ray kernel's time on the window case of the edge rows the backend
     # path handed it last
@@ -964,6 +1217,7 @@ def main():
                              "backend_main": [ser["launches"][name], thr["launches"][name]],
                              "dataset_main": ds["launches"][name],
                              "reloc_main": reloc["launches"][name],
+                             "vio_main": vio["launches"][name],
                              "synthetic": synth[name]}
     kernels = [{
         "name": "refine_matches",

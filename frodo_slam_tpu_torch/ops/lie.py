@@ -74,25 +74,32 @@ def quat_to_R(q: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*q.shape[:-1], 3, 3)
 
 
-def R_to_quat(R: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix to unit quaternion (scalar-last), branch-free: the
-    four Shepperd candidates, best-conditioned one picked."""
+def quat_candidates(R: torch.Tensor, one=1.0) -> torch.Tensor:
+    """The four Shepperd quaternion candidates of R (..., 4, 4), scalar-last:
+    linear in R's entries plus ``one`` (1 for a matrix, 0 for a tangent dR).
+    Candidate k's magnitude term is its entry ``(k + 3) % 4``."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
 
     tr = m00 + m11 + m22
-    q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 1.0 + tr], dim=-1)
-    q1 = torch.stack([1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], dim=-1)
-    q2 = torch.stack([m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21, m02 - m20], dim=-1)
-    q3 = torch.stack([m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22, m10 - m01], dim=-1)
+    q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, one + tr], dim=-1)
+    q1 = torch.stack([one + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12], dim=-1)
+    q2 = torch.stack([m01 + m10, one - m00 + m11 - m22, m12 + m21, m02 - m20], dim=-1)
+    q3 = torch.stack([m02 + m20, m12 + m21, one - m00 - m11 + m22, m10 - m01], dim=-1)
+    return torch.stack([q0, q1, q2, q3], dim=-2)
 
-    cands = torch.stack([q0, q1, q2, q3], dim=-2)  # (..., 4cand, 4)
-    mags = torch.stack(
-        [1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22],
-        dim=-1,
-    )
-    best = torch.argmax(mags, dim=-1)
+
+def quat_candidate_index(cands: torch.Tensor) -> torch.Tensor:
+    """Index of the best-conditioned candidate (the largest magnitude term)."""
+    return torch.argmax(cands[..., [0, 1, 2, 3], [3, 0, 1, 2]], dim=-1)
+
+
+def R_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix to unit quaternion (scalar-last), branch-free: the
+    four Shepperd candidates, best-conditioned one picked."""
+    cands = quat_candidates(R)  # (..., 4cand, 4)
+    best = quat_candidate_index(cands)
     idx = best[..., None, None].expand(*best.shape, 1, 4)
     q = torch.gather(cands, -2, idx)[..., 0, :]
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)

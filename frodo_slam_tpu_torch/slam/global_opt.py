@@ -7,7 +7,9 @@ constraint of ``gn_kernels.cu:1106-1290`` (with an exact Jacobian); the scale
 prior of ``gn_kernels.cu:1716-1790``; the outer loop
 ``gauss_newton_rays_odom_cuda`` (:1792-1934); the calibrated pixel +
 log-depth residual of ``calib_proj_kernel`` (:2295-2608) with its outer loop
-``gauss_newton_calib_cuda`` (:2610-2702). The JAX package's
+``gauss_newton_calib_cuda`` (:2610-2702); the 3-D point alignment of
+``point_align_kernel`` (:1936-2204) with ``gauss_newton_points_cuda``
+(:2206-2293), which only the disabled local mapper drives. The JAX package's
 ``slam/global_opt.py`` is the reference of this port.
 
 Since ``Ji = -Jj``, each directed edge's 14x14 Hessian is
@@ -54,6 +56,7 @@ class BAConfig(NamedTuple):
     sigma_depth: float = 10.0
     pixel_border: float = -10.0
     depth_eps: float = 1e-6
+    sigma_point: float = 0.05  # point alignment (config/base.yaml:33,54)
 
 
 # points per step of the calibrated edge reduction: bounds its (c, N, 3, 8)
@@ -254,6 +257,33 @@ def _calib_edge_systems(cfg: BAConfig, img_hw, K, T_WC, ii, jj, idx, XiT, w0, Xj
     return A.to(T_WC.dtype), gj.to(T_WC.dtype)
 
 
+def _point_edge_systems(cfg: BAConfig, T_WC, ii, jj, XiT, w0, XjT):
+    """3-D point-alignment edges (point_align_kernel, gn_kernels.cu:1936-2204)
+    -> (A (E, 7, 7), gj (E, 7)): residual ``Sim3(T_ij) Xj - Xi`` with D = I,
+    Huber-weighted with sqrt-weight ``w0 / sigma_point``. Plain tensor code
+    over chunks of edges, like :func:`_calib_edge_systems` (the JAX package
+    reduces it with XLA too)."""
+    E, _, N = XiT.shape
+    dt = XiT.dtype
+    Ti = T_WC[ii.long()]
+    Tij = lie.sim3_rel(Ti, T_WC[jj.long()]).to(dt)
+    M = _adj_inv_matrix(Ti).to(dt)
+    A = torch.empty((E, 7, 7), dtype=dt, device=XiT.device)
+    gj = torch.empty((E, 7), dtype=dt, device=XiT.device)
+    eye = torch.eye(3, dtype=dt, device=XiT.device)
+    step = max(1, CALIB_CHUNK_POINTS // max(N, 1))
+    for e0 in range(0, E, step):
+        sl = slice(e0, min(E, e0 + step))
+        P = lie.sim3_act(Tij[sl, None, :], XjT[sl].transpose(1, 2))  # (c, N, 3) in frame i
+        err = P - XiT[sl].transpose(1, 2)
+        sqrt_w = (w0[sl] / cfg.sigma_point)[..., None].expand_as(err)
+        w = huber(sqrt_w * err) * sqrt_w * sqrt_w
+        B, g = _reduce_rel_systems(eye.expand(*err.shape, 3), w, err, P)
+        A[sl] = torch.einsum("eba,ebc,ecd->ead", M[sl], B, M[sl])
+        gj[sl] = torch.einsum("eba,eb->ea", M[sl], g)
+    return A.to(T_WC.dtype), gj.to(T_WC.dtype)
+
+
 # ---------------------------------------------------------------------------
 # odometry factors
 # ---------------------------------------------------------------------------
@@ -265,15 +295,18 @@ def _mv(M, v):
 def _odom_terms(Ti, Tj, delta_T):
     """The pieces of the odometry SE(3)-log residual (gn_kernels.cu:1144-1177)
     r = log_SE3(T_meas^-1 T_pred), with R_ij = Ri^T Rj and the
-    scale-corrected t' = (1/s_j) Ri^T (tj - ti): ``A = Rm^T Ri^T``, ``1/s_j``
-    (1e6 at s_j = 0), ``t_err = A (1/s_j) (tj - ti) - Rm^T tm`` and
-    ``R_err = A Rj``."""
+    scale-corrected t' = (1/s_j) Ri^T (tj - ti): ``Rm^T``, ``A = Rm^T Ri^T``,
+    ``1/s_j`` (1e6 at s_j = 0), ``Rj``, ``t_err = A (1/s_j) (tj - ti) - Rm^T
+    tm`` and ``R_err = A Rj``, with R = ``quat_to_R(q)`` as the residual uses
+    it: for a quaternion off unit norm (|q|^2 = n; composing stored poses
+    drifts it) that is ``n R(q/|q|) + (1 - n) I``, not a rotation."""
     RmT = lie.quat_to_R(delta_T[..., 3:7]).transpose(-1, -2)
     A = RmT @ lie.quat_to_R(lie.sim3_q(Ti)).transpose(-1, -2)
+    Rj = lie.quat_to_R(lie.sim3_q(Tj))
     sj = lie.sim3_s(Tj)
     sj_inv = torch.where(sj == 0.0, 1e6, 1.0 / sj)
     t_err = _mv(A, sj_inv * (lie.sim3_t(Tj) - lie.sim3_t(Ti))) - _mv(RmT, delta_T[..., :3])
-    return A, sj_inv, t_err, A @ lie.quat_to_R(lie.sim3_q(Tj))
+    return RmT, A, sj_inv, Rj, t_err, A @ Rj
 
 
 def _jl_inv_coeffs(theta_sq):
@@ -293,39 +326,70 @@ def _jl_inv_coeffs(theta_sq):
     return b, c
 
 
+def _rotation_log_jvp(R, dR, phi):
+    """d phi for ``phi = so3_log(R_to_quat(R))`` along tangents ``dR`` (O, C,
+    3, 3) at R (O, 3, 3), any 3x3 R (not only rotations): the selected
+    Shepperd candidate c (:func:`lie.quat_candidates`) is linear in R, q = +-c / |c|, so dq = +-(dc - q
+    (q . dc)) / |c|; the rotation it applies on the left, delta = 2 vec(dq
+    q*), gives d phi = Jl^-1(phi) delta. Returns (O, 3, C)."""
+    cands = lie.quat_candidates(R)
+    best = lie.quat_candidate_index(cands)  # the candidate R_to_quat picks
+    rows = torch.arange(R.shape[0], device=R.device)
+    c = cands[rows, best]  # (O, 4)
+    dc = lie.quat_candidates(dR, 0.0)[rows, :, best]  # (O, C, 4)
+    norm = torch.linalg.norm(c, dim=-1, keepdim=True)
+    q = c / norm
+    sign = torch.where(q[:, 3:4] < 0, -1.0, 1.0).to(q.dtype)
+    dq = sign[:, None] * (dc - q[:, None] * torch.sum(q[:, None] * dc, -1, keepdim=True)) / norm[:, None]
+    delta = 2.0 * lie.quat_mul(dq, lie.quat_inv(sign * q)[:, None])[..., :3]  # (O, C, 3)
+    b, _ = _jl_inv_coeffs(torch.sum(phi * phi, dim=-1)[:, None, None])
+    Phi = lie.skew(phi)
+    Jli = torch.eye(3, dtype=R.dtype, device=R.device) - 0.5 * Phi + b * (Phi @ Phi)
+    return Jli @ delta.transpose(1, 2)
+
+
 def _odom_jacobian(Ti, Tj, delta_T):
     """Residual r (O, 6) and its exact Jacobian J (O, 6, 14) under the
     solver's left retraction of (pose_i, pose_j), in closed form.
 
     At xi = 0 the retraction moves a pose by dt = tau + omega x t + sigma t,
-    dR = skew(omega) R, ds = sigma s, which gives d t_err and the left
-    perturbation dR_err = skew(A (omega_j - omega_i)) R_err. With
-    (rho, phi) = log_SE3(t_err, R_err), rho = Jl^-1(phi) t_err:
-    d phi = Jl^-1(phi) dR_err and d rho = Jl^-1(phi) d t_err + D d phi,
-    D = d(Jl^-1(phi) t)/d phi = skew(t)/2 + b ((phi.t) I + phi t^T - 2 t phi^T)
-    + c (phi x (phi x t)) phi^T."""
-    A, sj_inv, t_err, R_err = _odom_terms(Ti, Tj, delta_T)
+    dq = omega q / 2 (|q| kept), ds = sigma s. With R(q) = n R^ + (1 - n) I
+    (see :func:`_odom_terms`), dRj = [omega_j]x (Rj - (1 - n_j) I) and
+    d(Ri^T) = -(Ri^T - (1 - n_i) I) [omega_i]x, which give d t_err and
+    dR_err; :func:`_rotation_log_jvp` maps dR_err to d phi. With (rho, phi)
+    = log_SE3(t_err, R_err), rho = Jl^-1(phi) t_err: d rho = Jl^-1(phi) d
+    t_err + D d phi, D = d(Jl^-1(phi) t)/d phi = skew(t)/2 + b ((phi.t) I +
+    phi t^T - 2 t phi^T) + c (phi x (phi x t)) phi^T. At unit quaternions
+    d phi reduces to Jl^-1(phi) A (omega_j - omega_i)."""
+    RmT, A, sj_inv, Rj, t_err, R_err = _odom_terms(Ti, Tj, delta_T)
     r = lie.se3_log(torch.cat([t_err, lie.R_to_quat(R_err)], dim=-1))
     phi = r[:, 3:]
     ti, tj = lie.sim3_t(Ti), lie.sim3_t(Tj)
+    n_i = torch.sum(lie.sim3_q(Ti) ** 2, dim=-1)[:, None, None]
+    n_j = torch.sum(lie.sim3_q(Tj) ** 2, dim=-1)[:, None, None]
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    An = A - (1.0 - n_i) * RmT  # -d(A)/d omega_i = An [.]x
     K = sj_inv[:, :, None] * A
-    Kt = K @ lie.skew(tj)
+    Kn = sj_inv[:, :, None] * An
     # d t_err/d sigma_j: d(1/s_j) = -1/s_j, but 0 where the 1e6 guard holds
     d_sj = torch.where(lie.sim3_s(Tj) == 0.0, _mv(K, tj), _mv(K, ti))
     # columns (tau, omega, sigma) of pose i, then of pose j
-    dt = torch.cat([-K, Kt, -_mv(K, ti)[..., None], K, -Kt, d_sj[..., None]], dim=-1)
+    dt = torch.cat([-K, Kn @ lie.skew(tj - ti) + K @ lie.skew(ti), -_mv(K, ti)[..., None],
+                    K, -K @ lie.skew(tj), d_sj[..., None]], dim=-1)
+    E = lie.skew(eye)  # (3, 3, 3): E[k] = [e_k]x
+    dR_i = -An[:, None] @ E[None] @ Rj[:, None]  # (O, 3, 3, 3): d R_err / d omega_i,k
+    dR_j = A[:, None] @ E[None] @ (Rj - (1.0 - n_j) * eye)[:, None]
+    J_om = _rotation_log_jvp(R_err, torch.cat([dR_i, dR_j], dim=1), phi)  # (O, 3, 6)
     z3, z1 = torch.zeros_like(A), torch.zeros_like(A[..., :1])
-    dR = torch.cat([z3, -A, z1, z3, A, z1], dim=-1)
+    J_phi = torch.cat([z3, J_om[..., :3], z1, z3, J_om[..., 3:], z1], dim=-1)
 
     b, c = _jl_inv_coeffs(torch.sum(phi * phi, dim=-1)[:, None, None])
-    eye = torch.eye(3, dtype=A.dtype, device=A.device)
     Phi = lie.skew(phi)
     Jli = eye - 0.5 * Phi + b * (Phi @ Phi)
     outer = lambda u, v: u[:, :, None] * v[:, None, :]  # noqa: E731
     pt = torch.sum(phi * t_err, dim=-1)[:, None, None]
     D = (0.5 * lie.skew(t_err) + b * (pt * eye + outer(phi, t_err) - 2.0 * outer(t_err, phi))
          + c * outer(_mv(Phi, _mv(Phi, t_err)), phi))
-    J_phi = Jli @ dR
     return r, torch.cat([Jli @ dt + D @ J_phi, J_phi], dim=1)
 
 
@@ -490,3 +554,15 @@ def solve_gn_calib(cfg: BAConfig, num_fix: int, img_hw, T_WC, X, C, K, edges: Ed
     return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar,
                      lambda T: _calib_edge_systems(cfg, img_hw, K, T, edges.ii, edges.jj, edges.idx,
                                                    XiT, w0, XjT), stats=stats)
+
+
+@torch.no_grad()
+def solve_gn_points(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: OdomEdges, s_bar,
+                    stats: Optional[dict] = None):
+    """3-D point-alignment global GN (gauss_newton_points_cuda,
+    gn_kernels.cu:2206-2293; exported at gn.cpp:152-160, driven by the
+    disabled local mapper local_mapping.py:190-206) with the same outer
+    loop, odometry rows and scale priors as :func:`solve_gn_rays`."""
+    XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar,
+                     lambda T: _point_edge_systems(cfg, T, edges.ii, edges.jj, XiT, w0, XjT), stats=stats)

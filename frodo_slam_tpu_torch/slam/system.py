@@ -21,11 +21,18 @@ database every keyframe is inserted (the map's first one too, and every
 keyframe carries its index explicitly, ``RetrievalDatabase.kf_ids``), each
 backend task turns the keyframes retrieved for its keyframe into loop-closure
 edges, and a lost frame relocalizes against the retrieved keyframes
-(vio.py:29-72) before the loss counter resets the map. Not in the port yet,
-each raising ``NotImplementedError`` that names its ROADMAP.md §1 item: the
-PGO (``local_opt_mode``) and the height prior. Each frame costs one fetch of
+(vio.py:29-72) before the loss counter resets the map.
+
+The robot VIO mode (``local_opt_mode``, the reference's ``VIO`` class): each
+new keyframe with an odometry pose feeds the scale-only pose graph
+(:mod:`.pgo`), whose gauge is written into the live keyframes' Sim(3) scale
+channel on the device, and the window solve weights its rays with
+``local_opt.sigma_ray_odom_mode``. With ``height_prior.enabled`` every
+window solve gets per-keyframe scale targets from a ground-plane fit
+(:mod:`.height_prior`), cached per keyframe. Each frame costs one fetch of
 the 20-float flags vector plus the tracker's own small fetches; each backend
-solve one small fetch per GN iteration (see global_opt.py).
+solve one small fetch per GN iteration (see global_opt.py), and each plane
+fit one fetch of its region's rows.
 """
 
 from __future__ import annotations
@@ -50,7 +57,9 @@ from . import frame as frame_mod
 from .backend import BackendGraph
 from .frame import Mode
 from .global_opt import BAConfig
+from .height_prior import RectanglePlaneEstimator, corners_from_mask_file
 from .inference import decode_mono
+from .pgo import apply_pgo_scale_, make_pose_graph, pgo_add_frame, pgo_optimize
 from .tracker import TrackingCfg, track_step
 
 log = get_logger("slam")
@@ -61,6 +70,7 @@ class SLAM:
 
     ``model`` is a :class:`~frodo_slam_tpu_torch.models.mast3r.MASt3R` on
     ``device``; ``device=None`` means the card and raises when there is none.
+    ``local_opt_mode``: the robot VIO mode (scale-only PGO on odometry).
     """
 
     def __init__(
@@ -77,11 +87,6 @@ class SLAM:
         device=None,
         keep_keyframe_images: bool = False,
     ):
-        if local_opt_mode:
-            raise NotImplementedError('local_opt_mode (PGO) is ROADMAP.md §1 "Frodo extras"')
-        if bool(cfg.height_prior.enabled):
-            raise NotImplementedError('the height prior is ROADMAP.md §1 "Frodo extras"')
-
         self.device = resolve_device(device)
         set_f32_contract()
         model_dev = next(model.parameters()).device
@@ -105,6 +110,7 @@ class SLAM:
         self.use_backend = use_backend
         self.use_reloc = use_reloc
         self.single_thread = single_thread
+        self.local_opt_mode = local_opt_mode
         self.retrieval = retrieval_db
 
         t = cfg.tracking
@@ -135,7 +141,9 @@ class SLAM:
         lo = cfg.local_opt
         self.ba_cfg = BAConfig(
             max_iters=int(lo.max_iters),
-            sigma_ray=float(lo.sigma_ray),
+            # odometry mode weights rays looser (configs/base.yaml:92)
+            sigma_ray=float(lo.get("sigma_ray_odom_mode", lo.sigma_ray)) if local_opt_mode
+            else float(lo.sigma_ray),
             sigma_dist=float(lo.sigma_dist),
             C_conf=float(lo.C_conf),
             Q_conf=float(lo.Q_conf),
@@ -159,6 +167,32 @@ class SLAM:
             max_edges=int(cfg.tpu.max_edges), max_odom=int(cfg.tpu.max_odom_edges),
             Q_conf=float(lo.Q_conf), min_match_frac=float(lo.min_match_frac),
         ) if use_backend else None
+
+        self.pgo = make_pose_graph(int(cfg.tpu.max_keyframes), device=self.device)
+        hp = cfg.height_prior
+        self.height_prior_enabled = bool(hp.enabled)
+        rect = hp.get("rect", None)
+        corners = None
+        if rect:
+            (x0, y0), (x1, y1) = rect
+            corners = ((int(x0), int(y0)), (int(x1), int(y1)))
+        if corners is None and hp.get("mask_file", None):
+            # the reference's interactively picked pickled region
+            # (height_prior.py:36-43 + config/rect_mask.pkl)
+            corners = corners_from_mask_file(str(hp.mask_file))
+        self.plane_estimator = RectanglePlaneEstimator(
+            corners=corners, max_tilt_deg=float(hp.tilt_max_deg),
+            ransac_iterations=int(hp.ransac_iters), inlier_thresh=float(hp.get("dist_thresh", 0.04)))
+        self.camera_height = float(hp.camera_height)
+        # per-keyframe plane-fit cache (logical keyframe index -> gauge
+        # target) and the fit region's storage rows (a device index, built
+        # at the first fit); each invalidation is numbered, so that a
+        # threaded task never caches a fit of a pointmap that changed after
+        # its copy of the store was taken
+        self._hp_cache: dict = {}
+        self._hp_gen = 0
+        self._hp_gen_of: dict = {}  # keyframe -> number of its last invalidation
+        self._hp_region_idx = None
 
         self.mode = Mode.INIT
         self.frame_count = 0
@@ -231,6 +265,8 @@ class SLAM:
             self.backend.reset()
         if self.retrieval is not None:
             self.retrieval.reset()
+        self.pgo = make_pose_graph(self.pgo.capacity, device=self.device)
+        self._hp_cache, self._hp_gen_of = {}, {}
         self.mode = Mode.INIT
         self.loss_track_counter = 0
         self.kf_timestamps = []
@@ -439,13 +475,17 @@ class SLAM:
         if ok and not new_kf and self._kf_sync_per_frame:
             with self._backend_lock:
                 frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), self.active_kf)
+                self._hp_invalidate(len(self.kf_timestamps) - 1)
         if new_kf:
             with self._backend_lock:
                 # sync the outgoing keyframe's fused pointmap into its slot
                 # (the reference writes it back every frame,
                 # tracker.py:325-328; here at keyframe rate like the JAX
-                # package), then append the new keyframe, both in place
+                # package), then append the new keyframe, both in place.
+                # The outgoing keyframe's stored pointmap just changed: its
+                # cached plane fit is stale.
                 frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), prev_kf)
+                self._hp_invalidate(len(self.kf_timestamps) - 1)
                 self.store = frame_mod.kf_append(self.store, fused)
 
         if not ok:
@@ -484,6 +524,8 @@ class SLAM:
                     n = len(self.kf_timestamps)
                     odom_factor = (n - 2, n - 1, delta.numpy())
                     self.last_odom_pose = odom_pose
+                if self.local_opt_mode and odom_pose is not None:
+                    self._pgo_step(odom_pose)
                 if self.use_backend:
                     # consecutive-edge half reuse: hand the backend the
                     # tracker's direction of this pair's decode + match, not
@@ -496,6 +538,22 @@ class SLAM:
 
         self.frame_count += 1
         return ok, self.current_T_WC, new_kf
+
+    def _pgo_step(self, odom_pose):
+        """Add the new keyframe's tracked pose and odometry pose to the
+        scale-only pose graph, solve it, and write the map gauge ``1 / s``
+        into the live keyframes' scale channel (the reference applies its
+        PGO result through get_kf_poses + update_T_WCs, tracker.py:347-353,
+        pgo.py:195-202): the exported SE(3) trajectory stays at VO gauge,
+        the pose scales carry the gauge, so the metric trajectory is t / s.
+        Conditional on the device, no host fetch; a no-op until the graph
+        has more than 10 frames. The store is written in place, so the
+        write-back holds the lock a threaded backend merge takes."""
+        pgo_add_frame(self.pgo, torch.as_tensor(self.current_T_WC),
+                      torch.as_tensor(np.asarray(odom_pose)[:7]))
+        _, s, pgo_ok = pgo_optimize(self.pgo)
+        with self._backend_lock:
+            apply_pgo_scale_(self.store.T_WC, self.store.n_size, s, pgo_ok)
 
     # -- backend ---------------------------------------------------------------
 
@@ -510,7 +568,7 @@ class SLAM:
         live store (the serialized eval contract)."""
         with self._backend_lock:
             store = self.store if self.single_thread else frame_mod.kf_snapshot(self.store)
-            epoch = self._map_epoch
+            epoch, hp_gen = self._map_epoch, self._hp_gen
 
         kf_set = {idx - 1} if idx >= 1 else set()
         if self.retrieval is not None:
@@ -531,7 +589,7 @@ class SLAM:
         if odom_factor is not None:
             self.backend.add_odometry_factors(*odom_factor)
 
-        win = self._solve_window(store)
+        win = self._solve_window(store, self._height_prior_s_bar(store, hp_gen))
         if win is None:
             return
         uniq, p, T_new = win
@@ -559,13 +617,63 @@ class SLAM:
                 if self.single_thread or n_latest == idx:
                     self.current_T_WC = T_new[w].cpu().numpy()
 
-    def _solve_window(self, store):
+    def _solve_window(self, store, s_bar=None):
         """The window solve of a backend task: calibrated pixel/log-depth GN
-        with a calibration, ray alignment otherwise (vio.py:154-157).
+        with a calibration, ray alignment otherwise (vio.py:154-157), with
+        the scale targets ``s_bar`` (per logical keyframe, <= 0 off).
         Returns (uniq, p, T_new) or None."""
         if self.tcfg.use_calib:
-            return self.backend.solve_window_calib(store, self.K)
-        return self.backend.solve_window_rays(store)
+            return self.backend.solve_window_calib(store, self.K, s_bar)
+        return self.backend.solve_window_rays(store, s_bar)
+
+    def _hp_invalidate(self, k: int):
+        """Drop keyframe ``k``'s cached fit (its stored pointmap changed);
+        under ``_backend_lock``."""
+        self._hp_gen += 1
+        self._hp_gen_of[k] = self._hp_gen
+        self._hp_cache.pop(k, None)
+
+    def _height_prior_s_bar(self, store, hp_gen=None):
+        """Per-keyframe metric-scale targets from the ground-plane fit
+        (global_opt.py:212-224), or None with the prior off.
+
+        Unlike the reference, which refits every window keyframe's plane on
+        every backend task, fits are cached per keyframe and invalidated when
+        the keyframe's stored pointmap changes (the fused write-back at the
+        next keyframe, see ``_finalize_track``), and only the fit region's
+        rows (at most ``max_subsample``) are gathered on the device and
+        fetched; the fit runs on them on the host. A task therefore refits
+        only the one or two dirty keyframes, whatever the window's size.
+        ``hp_gen``: the invalidation count when ``store`` was copied; a fit
+        of a keyframe invalidated since is used but not cached."""
+        if not self.height_prior_enabled:
+            return None
+        uniq = self.backend.unique_kf_idx()
+        if not uniq:
+            return None
+        h, w = self.img_hw
+        if self._hp_region_idx is None:
+            true_hw = (w, h) if self.portrait else (h, w)
+            flat_true = self.plane_estimator.region_indices(true_hw)
+            if self.portrait:
+                # the region is selected in TRUE-image pixels; storage is
+                # landscape-transposed (storage[x, y] = true[y, x]), so the
+                # true flat index y * true_w + x maps to storage x * w + y
+                flat_true = (flat_true % h) * w + flat_true // h
+            self._hp_region_idx = torch.as_tensor(flat_true, dtype=torch.long, device=self.device)
+        s_bar = np.full(max(uniq) + 1, -1.0, np.float32)
+        for k in uniq:
+            v = self._hp_cache.get(k)
+            if v is None:
+                pts = store.X_canon[int(k) % store.capacity][self._hp_region_idx].cpu().numpy()
+                h_bar = self.plane_estimator.run_points(pts)
+                # gauge-target convention: see height_prior.scale_targets
+                v = float(h_bar / self.camera_height) if (h_bar is not None and h_bar > 1e-6) else -1.0
+                with self._backend_lock:
+                    if hp_gen is None or self._hp_gen_of.get(k, 0) <= hp_gen:
+                        self._hp_cache[k] = v
+            s_bar[k] = v
+        return s_bar
 
     def _run_backend(self, idx: int, odom_factor, pair_half=None):
         if self.single_thread:
@@ -641,5 +749,19 @@ class SLAM:
                                                     device=self.device)].cpu().numpy()
         return self.kf_timestamps[-n:] if n else [], poses
 
+    def metric_keyframe_poses(self) -> Tuple[List[float], np.ndarray]:
+        """(timestamps, (N, 8) poses) with translations in metric units,
+        t / s, where the Sim(3) scale channel s is the map gauge (world units
+        per metric unit, see :func:`.pgo.apply_pgo_scale_`). The scale-only
+        PGO and the BA's odometry factors estimate it; with neither active s
+        stays 1 and this equals :meth:`keyframe_poses`."""
+        stamps, poses = self.keyframe_poses()
+        out = poses.copy()
+        out[:, :3] = poses[:, :3] / np.maximum(poses[:, 7:8], 1e-8)
+        return stamps, out
+
     def get_pose(self) -> np.ndarray:
         return self.current_T_WC
+
+
+VIO = SLAM  # the reference's class name (vio.py:163)

@@ -3,10 +3,9 @@ against a geometrically consistent synthetic world, ATE RMSE against ground
 truth.
 
     python -m frodo_slam_tpu_torch.tools.eval_synthetic [--frames 40] [--noise 0.003]
-        [--per-frame | --calib | --loop | --episode] [--threaded] [--device cuda|cpu]
+        [--per-frame | --calib | --loop | --episode | --vio] [--threaded] [--device cuda|cpu]
 
-The port's own copy of the JAX package's ``scripts/eval_synthetic.py`` (less
-its VIO mode, which needs the PGO and odometry). No dataset and no trained
+The port's own copy of the JAX package's ``scripts/eval_synthetic.py``. No dataset and no trained
 weights exist here, so the two model entry points every SLAM decode goes
 through, ``mast3r.encode_image`` (``SLAM._encode_frame``) and
 ``mast3r.decode_and_heads`` (``slam/inference.py``), are replaced by an
@@ -14,7 +13,8 @@ ORACLE that renders pointmaps of a fixed world from the frame's ground-truth
 pose, smuggled through the image pixels. Everything else is the port end to
 end: preprocessing, the matcher and its refine, the Sim(3) tracking GN,
 keyframing, retrieval and relocalization, the backend factor graph and
-window BA, trajectory export and the Sim(3)-aligned ATE.
+window BA, odometry factors and the scale-only PGO, trajectory export and
+the ATE.
 
 The patch is module-wide, so run the harness in a process of its own. It
 runs on the card unless ``--device cpu``. Pointmap noise is drawn on the CPU
@@ -474,6 +474,66 @@ def run_loop(n_frames=24, noise=0.004, out_dir=None, with_retrieval=True, device
             "n_loop_edges": len(loop_edges), "n_long_loop_edges": len(long_edges), "noise": noise}
 
 
+def run_vio(n_frames=16, noise=0.002, alpha=0.5, use_odometry=True, out_dir=None, device="cuda"):
+    """The robot VIO mode end to end (the JAX package's ``run_vio`` row):
+    wheel-odometry SE(3) factors and the scale-only PGO recover METRIC scale.
+
+    The oracle world is rendered along a trajectory whose translations are
+    the metric ground truth scaled by ``alpha``: pure VO can only recover
+    that alpha-scaled trajectory (the monocular gauge g = alpha). The
+    odometry stream reports the true metric SE(3) poses. With
+    ``use_odometry`` (``local_opt_mode``) each keyframe's odometry delta
+    enters the window BA and the PGO writes the gauge into the keyframes'
+    scale channels (g = world / metric), so the metric trajectory is t / s.
+
+    Metric-ness is measured WITHOUT the Sim(3) alignment's scale freedom:
+    the SE(3)-aligned ATE of the metric trajectory against the metric ground
+    truth (``ate_se3_scaled``); without odometry it misses by about (1 -
+    alpha) x the trajectory's spread. ``ate_sim3`` is the shape control."""
+    from ..config import make_config
+    from ..slam.system import SLAM
+    from ..utils import evaluate
+
+    pts_w, D_desc = make_world()
+    install_oracle(pts_w, D_desc, noise)
+    T_metric = trajectory(n_frames).numpy()  # Sim3 (8,): metric ground truth
+    T_vo = T_metric.copy()
+    T_vo[:, :3] *= alpha  # what monocular VO sees (the world is self-consistent)
+    cfg = make_config(
+        tracking={"min_match_frac": 0.0, "Q_conf": 0.0, "max_iters": 30,
+                  "match_frac_thresh": 1.1},  # a keyframe per frame
+        local_opt={"Q_conf": 0.0, "min_match_frac": 0.0, "max_iters": 6},
+        tpu={"max_keyframes": max(8, n_frames + 2), "max_edges": max(32, 4 * n_frames),
+             "max_odom_edges": max(8, n_frames + 2)},
+    )
+    slam = SLAM(cfg, _tiny_model(device), (H, W), retrieval_db=None, use_backend=True,
+                use_reloc=False, single_thread=True, local_opt_mode=use_odometry, device=device)
+    ok_count = 0
+    for t in range(n_frames):
+        odom = T_metric[t, :7].astype(np.float64) if use_odometry else None
+        ok, _, _ = slam.grab_rgb(encode_pose_image(T_vo[t]), timestamp=float(t), odom_pose=odom)
+        ok_count += int(ok)
+    slam.terminate()
+
+    stamps, poses = slam.keyframe_poses()  # (N, 8) Sim3, world gauge
+    _, poses_metric = slam.metric_keyframe_poses()  # t / s
+    out_dir = pathlib.Path(out_dir or tempfile.mkdtemp(prefix="synth_vio_"))
+    gt_rows = np.concatenate([np.arange(n_frames, dtype=np.float64)[:, None],
+                              np.asarray(T_metric[:, :7], np.float64)], axis=1)
+    gt_path = out_dir / "vio_gt.txt"
+    np.savetxt(gt_path, gt_rows, fmt="%.9f")
+    traj_raw = evaluate.save_traj(out_dir, "vio_raw.txt", stamps, poses)
+    traj_met = evaluate.save_traj(out_dir, "vio_metric.txt", stamps, poses_metric)
+    ate = lambda traj, **kw: float(evaluate.ate_rmse(str(gt_path), str(traj), max_dt=0.5, **kw))  # noqa: E731
+    return {"mode": "vio" if use_odometry else "vio_no_odom", "alpha": alpha,
+            "scale_median": round(float(np.median(poses[:, 7])), 4),  # a transient between alpha and 1
+            "ate_se3_raw": round(ate(traj_raw, with_scale=False), 6),
+            "ate_se3_scaled": round(ate(traj_met, with_scale=False), 6),
+            "ate_sim3": round(ate(traj_raw), 6),
+            "pgo_scale": round(float(slam.pgo.scale[0, 0]), 6),
+            "n_kf": len(stamps), "frames_tracked_ok": ok_count, "noise": noise}
+
+
 def run_episode(noise=0.0, device="cuda"):
     """The failure-path episode (reference tracker.py:222-276, vio.py:29-72,
     321-328): the real accept gate, the fnn descriptor fallback, and
@@ -563,6 +623,8 @@ def main(argv=None):
                     help="loop closure on the plane world, with and without the retrieval database")
     ap.add_argument("--per-frame", action="store_true",
                     help="sparse keyframing + per-frame-pose ATE (the warm-started matcher path)")
+    ap.add_argument("--vio", action="store_true",
+                    help="the robot VIO mode (odometry factors + scale-only PGO), with and without odometry")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -571,6 +633,10 @@ def main(argv=None):
         out = run_episode(args.noise, device=dev)
     elif args.calib:
         out = run_calib(args.frames, args.noise, out_dir=args.out, device=dev)
+    elif args.vio:
+        on = run_vio(args.frames, args.noise, use_odometry=True, out_dir=args.out, device=dev)
+        off = run_vio(args.frames, args.noise, use_odometry=False, out_dir=args.out, device=dev)
+        out = {"vio": on, "no_odom": off}
     elif args.loop:
         on = run_loop(args.frames, args.noise, out_dir=args.out, with_retrieval=True, device=dev)
         off = run_loop(args.frames, args.noise, out_dir=args.out, with_retrieval=False, device=dev)

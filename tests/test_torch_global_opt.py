@@ -243,11 +243,32 @@ def test_odom_edge_system_near_identity_matches_jax(angle):
     np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-9, atol=1e-12 * np.abs(Hj).max())
 
 
+@pytest.mark.parametrize("drift", [1e-5, -3e-4, 1e-2])
+def test_odom_edge_system_off_unit_quaternions_matches_jax(drift):
+    """Stored quaternions drift off unit norm (composing a pose with another's
+    conjugate multiplies their norms); the residual then reads ``quat_to_R``
+    of the drifted quaternions, and the Jacobian must follow it exactly, as
+    JAX's forward-mode AD does. Both poses' and the measurement's
+    quaternions scaled by 1 + drift, f64, near and away from the
+    measurement."""
+    for angle in (None, 1e-4):
+        T, dT = _odom_poses(5, angle)
+        T[1:, 3:7] *= 1.0 + drift
+        T[2, 3:7] *= 1.0 + drift
+        dT = dT * np.asarray([1.0] * 3 + [1.0 + drift] * 4)
+        Hj, gj = jgo._odom_edge_system(jgo.BAConfig(), jnp.asarray(T), 1, 2, jnp.asarray(dT))
+        Ht, gt = tgo._odom_edge_system(tgo.BAConfig(), torch.from_numpy(T), 1, 2, torch.from_numpy(dT))
+        Hj, gj = np.asarray(Hj), np.asarray(gj)
+        np.testing.assert_allclose(Ht.numpy(), Hj, rtol=1e-9, atol=1e-12 * np.abs(Hj).max())
+        np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-9, atol=1e-12 * np.abs(Hj).max())
+
+
 @pytest.mark.parametrize("angle", [None, 0.0, 0.3])
 def test_odom_jacobian_matches_finite_differences(angle):
     """The closed-form Jacobian against central differences of the
     residual it returns, under the left retraction, batched over two rows."""
     T, dT = _odom_poses(4, angle)
+    T[2, 3:7] *= 1.0 + 1e-3  # a drifted quaternion (see the test above)
     T = torch.from_numpy(T)
     dT = torch.from_numpy(np.stack([dT, dT]))
     ii, jj = torch.tensor([1, 0]), torch.tensor([2, 2])

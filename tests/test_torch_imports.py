@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``frodo_slam_tpu_torch`` (nor
 ``chip_smoke.py``, ``kernel_ab.py``) imports ``jax`` or anything of ``frodo_slam_tpu``, no
-module of the port imports ``cv2`` or calls the library attention
-``scaled_dot_product_attention``, and its entry points run on the card
-unless asked for the CPU."""
+module of the port imports ``cv2`` (but for the live robot poller's ORB yaw,
+inside its functions: hardware the tests never run) or calls the library
+attention ``scaled_dot_product_attention``, and its entry points run on the
+card unless asked for the CPU."""
 
 import ast
 import pathlib
@@ -23,6 +24,13 @@ MODULES = sorted(
 RUNNER_MODULES = ["frodo_slam_tpu_torch.main", "frodo_slam_tpu_torch.loader",
                   "frodo_slam_tpu_torch.data.datasets", "frodo_slam_tpu_torch.data.prefetch",
                   "frodo_slam_tpu_torch.utils.evaluate", "frodo_slam_tpu_torch.ops.attention_kernel"]
+# the robot VIO path's modules
+VIO_MODULES = ["frodo_slam_tpu_torch.run_vio", "frodo_slam_tpu_torch.slam.odometry",
+               "frodo_slam_tpu_torch.slam.pgo", "frodo_slam_tpu_torch.slam.height_prior",
+               "frodo_slam_tpu_torch.slam.imu", "frodo_slam_tpu_torch.slam.local_mapping",
+               "frodo_slam_tpu_torch.utils.checkpoint", "frodo_slam_tpu_torch.utils.sigma_compute"]
+# functions that may import OpenCV in their bodies: the live robot poller
+CV2_FUNCTIONS = {"frodo_slam_tpu_torch/slam/odometry.py": {"yaw_from_rays", "_loop"}}
 
 torch.set_num_threads(1)
 
@@ -50,7 +58,12 @@ def test_no_opencv_and_no_library_attention_in_the_port(path):
     """The card's machine has no OpenCV; every attention goes through the
     port's own kernel (chip_smoke.py times the library call only)."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    allowed = CV2_FUNCTIONS.get(str(path.relative_to(ROOT)), set())
+    exempt = {id(n) for f in ast.walk(tree) if isinstance(f, ast.FunctionDef) and f.name in allowed
+              for n in ast.walk(f)}
     for node in ast.walk(tree):
+        if id(node) in exempt:
+            continue
         if isinstance(node, ast.Import):
             assert all(a.name.split(".")[0] != "cv2" for a in node.names), path.name
         elif isinstance(node, ast.ImportFrom) and node.module:
@@ -63,12 +76,19 @@ def test_runner_modules_are_covered():
     assert set(RUNNER_MODULES) <= set(MODULES)
 
 
+def test_vio_modules_are_covered():
+    assert set(VIO_MODULES) <= set(MODULES)
+    for rel, names in CV2_FUNCTIONS.items():
+        tree = ast.parse((ROOT / rel).read_text())
+        assert names <= {f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)}, rel
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "leaked = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'frodo_slam_tpu'))\n"
+        "leaked = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'frodo_slam_tpu', 'cv2'))\n"
         "assert not leaked, leaked\n"
         "print(len(sys.modules))\n"
     )

@@ -10,6 +10,7 @@ edge and odometry counts equal.
 """
 
 import pathlib
+import types
 
 import jax
 import numpy as np
@@ -133,10 +134,15 @@ def test_unported_options_raise(weights):
     params, _ = weights
     model = tmast3r.MASt3R(tmast3r.tiny_config())
     cfg = t_make_config()
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "Frodo extras"'):
-        TSLAM(cfg, model, (H, W), device="cpu", local_opt_mode=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "Frodo extras"'):
-        TSLAM(t_make_config(height_prior={"enabled": True}), model, (H, W), device="cpu")
+    # the VIO mode and the height prior are ported: both build
+    vio = TSLAM(cfg, model, (H, W), device="cpu", local_opt_mode=True)
+    assert vio.local_opt_mode and vio.ba_cfg.sigma_ray == float(cfg.local_opt.sigma_ray_odom_mode)
+    assert TSLAM(t_make_config(height_prior={"enabled": True}), model, (H, W), device="cpu").height_prior_enabled
+    # the live viewer still raises, naming its item
+    from frodo_slam_tpu_torch import main as tmain
+
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "The rest of the entry points and IO"'):
+        tmain.run(types.SimpleNamespace(viz=True))
     # retrieval and relocalization are ported: a database builds, reloc on by default
     db = tloader.load_retriever(tmast3r.tiny_config(), path="no/such/retrieval.pth", device="cpu")
     slam = TSLAM(cfg, model, (H, W), retrieval_db=db, use_reloc=True, device="cpu")
