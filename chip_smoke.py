@@ -84,18 +84,38 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      poses, odometry factors, every kernel launched, no failed backend
      task; per-frame and per-task ms, the PGO's ms and live count, plane
      fits (rows, ms, live targets), peak memory;
- 15. synthetic: the port's oracle harness (``python -m
+ 15. viz_main: the same run with ``--visualize``: the live map viewer on a
+     free port while the backend worker writes the store in place; a client
+     thread polls /state.json and /points.bin every 0.2 s, pauses the run
+     after frame 4 (no frame for 1 s), steps exactly one frame, resumes, and
+     is refused (403) from a foreign origin. Then a fresh viewer over the
+     finished map must serve the store's live poses exactly, the backend's
+     edges, and the points numpy recomputes from the store on the host
+     (1e-5 relative to max(1, |x|)); no viewer error. Frame ms beside
+     vio_main's, snapshots (host ms, bytes fetched), peak memory;
+ 16. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
+     (its ``main``) over 224 smooth random 288x512 PNGs it writes under
+     build/chip_smoke/codebook/: the random-weight ViT-L encoder and the
+     seeded retrieval head (1024 -> 1024, nfeat 300), 67,200 features,
+     k-means to 65,536 words (20 iterations, batch 65,536). The card's
+     k-means against the CPU's at 8,192 x 512 words x 5 iterations on the
+     same draws (1e-5, >= 99.9% equal assignments); unit finite centroids;
+     the pickle loads not degraded; a training image is retrieved first.
+     Encode ms per image, k-means ms per iteration beside its f32 bound,
+     attention launches (24 an image), peak memory;
+ 17. synthetic: the port's oracle harness (``python -m
      frodo_slam_tpu_torch.tools.eval_synthetic --device cuda``) in
      subprocesses: the straight row (10 frames at 3 mm), the --per-frame row
      (warm frames) and the loop row (14 frames at 4 mm, with and without
      retrieval) and the VIO row (16 frames at 2 mm, with and without
      odometry), each held to the JAX package's bars; ATEs and launches;
- 16. the script's wall time; the kernels line; the device line (last line
+ 18. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
-On every path (6, 11, 12, 13, 14 and 15) the kernel launch counters are zeroed
-just before it and read just after; each path must launch each of its
-kernels (the oracle of 13 replaces the model: no attention there).
+On every path (6, 11, 12, 13, 14, 15, 16 and 17) the kernel launch counters
+are zeroed just before it and read just after; each path must launch each
+of its kernels (the oracle of 17 replaces the model: no attention there;
+the trainer of 16 runs the encoder only: attention alone).
 Its peak memory window starts after a garbage collection, and the bytes
 still allocated then are printed beside the peak.
 
@@ -875,6 +895,22 @@ def _write_session(path: pathlib.Path, n_frames: int, h=360, w=640):
         pickle.dump(rows, f)
 
 
+def _vio_args(work, n_frames, **kw):
+    """``run_vio``'s arguments for the recorded session of ``vio_main``: a
+    config that inherits configs/base_no_fnn.yaml, threaded, every frame a
+    keyframe, the height prior on, --use_odometry, every frame."""
+    work = pathlib.Path(work or ROOT / "build" / "chip_smoke")
+    session = work / "vio" / "session_mini.pkl"
+    _write_session(session, n_frames)
+    cfg = work / "vio_smoke.yaml"
+    over = dict(FORCE_KEYFRAMES, height_prior={"enabled": True})
+    cfg.write_text("\n".join([f'inherit: "{ROOT / "configs" / "base_no_fnn.yaml"}"', "single_thread: false"]
+                             + [f"{k}: {json.dumps(v)}" for k, v in over.items()]) + "\n")
+    return types.SimpleNamespace(**dict(dict(dataset=str(session), config=str(cfg), calib=None, weights=None,
+                                             no_retrieval=True, use_odometry=True, wall_clock=False,
+                                             every_n_frames=1, visualize=False, use_multiple_gpu=False), **kw))
+
+
 def phase_vio_main(n_frames=16, work=None):
     """``python -m frodo_slam_tpu_torch.run_vio --dataset <session> --use_odometry
     --every_n_frames 1 --no-retrieval`` as ``run_vio.run_dataset``, ViT-L at
@@ -889,16 +925,7 @@ def phase_vio_main(n_frames=16, work=None):
     from frodo_slam_tpu_torch.slam import system as system_mod
     from frodo_slam_tpu_torch.slam.height_prior import RectanglePlaneEstimator
 
-    work = pathlib.Path(work or ROOT / "build" / "chip_smoke")
-    session = work / "vio" / "session_mini.pkl"
-    _write_session(session, n_frames)
-    cfg = work / "vio_smoke.yaml"
-    over = dict(FORCE_KEYFRAMES, height_prior={"enabled": True})
-    cfg.write_text("\n".join([f'inherit: "{ROOT / "configs" / "base_no_fnn.yaml"}"', "single_thread: false"]
-                             + [f"{k}: {json.dumps(v)}" for k, v in over.items()]) + "\n")
-    args = types.SimpleNamespace(dataset=str(session), config=str(cfg), calib=None, weights=None,
-                                 no_retrieval=True, use_odometry=True, wall_clock=False, every_n_frames=1,
-                                 visualize=False, use_multiple_gpu=False)
+    args = _vio_args(work, n_frames)
     rec = dict(frame_ms=[], task_ms=[], pgo_host_ms=[], pgo_ok=[], fit_rows=[], fit_ms=[], targets=[])
     real = dict(grab=SLAM.grab_rgb, task=SLAM._backend_step, pgo=SLAM._pgo_step, sbar=SLAM._height_prior_s_bar,
                 fit=RectanglePlaneEstimator.run_points, opt=system_mod.pgo_optimize)
@@ -990,6 +1017,340 @@ def phase_vio_main(n_frames=16, work=None):
     for name in WRAPPERS:
         assert launches[name] > 0, f"vio_main never launched {name}"
     del slam
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------------------
+# viz_main: the live map viewer over the VIO runner at full width
+# ---------------------------------------------------------------------------
+
+VIZ_PAUSE_AT = 4  # frames through before the client pauses the run
+HTTP_TIMEOUT = 30.0
+
+
+def _http(port, path, body=None, origin=None):
+    """(status, body) of one request to the viewer, with a timeout."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="GET" if body is None else "POST")
+    if origin is not None:
+        req.add_header("Origin", origin)
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _until(pred, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.01)
+    return False
+
+
+def _pause_step_resume(v, slam):
+    """Pause the run, hold it for 1 s, step one frame, then try to resume it
+    from a foreign origin (refused) and from the page's own."""
+    ctl = lambda action, origin=None: _http(v.port, "/control", json.dumps({"action": action}).encode(),  # noqa: E731
+                                            origin)[0]
+    assert ctl("pause") == 200
+    assert _until(lambda: v.holding), "the run did not stop at its frame gate"
+    held = slam.frame_count
+    time.sleep(1.0)
+    assert slam.frame_count == held and v.holding, "a frame went through while paused"
+    assert ctl("step") == 200
+    assert _until(lambda: slam.frame_count == held + 1), "a step released no frame"
+    assert _until(lambda: v.holding), "the run did not stop after the step"
+    time.sleep(0.5)
+    stepped = slam.frame_count - held
+    assert stepped == 1, f"a step released {stepped} frames"
+    foreign = ctl("resume", origin="http://elsewhere.example")
+    assert foreign == 403 and v.paused, "a foreign origin resumed the run"
+    assert ctl("resume", origin=f"http://127.0.0.1:{v.port}") == 200
+    return dict(held_at=held, stepped=stepped, foreign_status=foreign)
+
+
+def _viz_client(viewers, done, rec):
+    """The browser's part: /state.json and /points.bin every 0.2 s; once
+    VIZ_PAUSE_AT frames went through, the pause, step and resume."""
+    import urllib.error
+
+    try:
+        assert _until(lambda: viewers), "no viewer started"
+        v = viewers[0]
+        while not done.is_set():
+            try:
+                code, state = _http(v.port, "/state.json")
+                code2, pts = _http(v.port, "/points.bin")
+            except (urllib.error.URLError, ConnectionError):
+                if v._stop.is_set():
+                    return  # the run ended and stopped its viewer
+                raise
+            assert code == code2 == 200, (code, code2)
+            st = json.loads(state)
+            rec["polls"] += 1
+            rec["versions"].add(st["version"])
+            rec["max_points_bytes"] = max(rec["max_points_bytes"], len(pts))
+            if rec["pause"] is None and v.slam.frame_count >= VIZ_PAUSE_AT:
+                rec["pause"] = _pause_step_resume(v, v.slam)
+            done.wait(0.2)
+    except Exception:  # reported by the phase, which fails on it
+        import traceback
+
+        rec["error"] = traceback.format_exc()
+
+
+def _plain_points(T, X, C, N, thr, max_points):
+    """The viewer's points recomputed in numpy from the store fetched to the
+    host: the gate in f64, the JAX package's draw, s R X + t in f32."""
+    conf = (C[..., 0].astype(np.float64) / np.maximum(N, 1)[:, None]).reshape(-1)
+    keep = np.flatnonzero(conf > thr)
+    if len(keep) > max_points:
+        keep = keep[np.random.default_rng(0).choice(len(keep), max_points, replace=False)]
+    Tk, Xk = T[keep // X.shape[1]], X.reshape(-1, 3)[keep]
+    qv, qw = Tk[:, 3:6], Tk[:, 6:7]
+    uv = 2.0 * np.cross(qv, Xk)
+    Y = Tk[:, 7:8] * (Xk + qw * uv + np.cross(qv, uv)) + Tk[:, :3]
+    return np.concatenate([Y, conf[keep][:, None]], axis=1).astype(np.float32)
+
+
+def phase_viz_main(vio, n_frames=16, work=None):
+    """``run_vio.run_dataset`` with ``--visualize`` on ``vio_main``'s session
+    and config (threaded: the backend worker writes the store in place while
+    the viewer reads it), the viewer on a free port, and a client thread in
+    the browser's place. At the end a fresh viewer over the finished map
+    must serve exactly the store's live poses, the backend's edges, and the
+    points that numpy recomputes from the store fetched to the host."""
+    import threading
+
+    from frodo_slam_tpu_torch import run_vio
+    from frodo_slam_tpu_torch.viz import visualization as viz
+    from frodo_slam_tpu_torch.viz import web
+
+    args = _vio_args(work, n_frames, visualize=True, viz_port=0)
+    viewers, frame_ms = [], []
+    rec = dict(polls=0, versions=set(), max_points_bytes=0, pause=None, error=None)
+    real_viewer, real_grab = web.WebViewer, SLAM.grab_rgb
+
+    class Recorded(real_viewer):
+        def start(self):
+            out = super().start()
+            viewers.append(self)  # serving, on its bound port
+            return out
+
+    def grab(self, *a, **k):
+        t = time.perf_counter()
+        out = real_grab(self, *a, **k)
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    failures = _Failures()
+    logging.getLogger("frodo_slam_tpu_torch").addHandler(failures)
+    web.WebViewer, SLAM.grab_rgb = Recorded, grab
+    env = os.environ.get("FRODO_RANDOM_SHARE_DECODER")
+    os.environ["FRODO_RANDOM_SHARE_DECODER"] = "1"  # identical frames track (loader.py)
+    done = threading.Event()
+    client = threading.Thread(target=_viz_client, args=(viewers, done, rec), daemon=True)
+    try:
+        at_start = reset_peak()
+        zero_counts()
+        client.start()
+        t0 = time.perf_counter()
+        slam = run_vio.run_dataset(args, device=DEV)  # terminated, the viewer stopped
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        done.set()
+        client.join(timeout=2 * HTTP_TIMEOUT)
+        web.WebViewer, SLAM.grab_rgb = real_viewer, real_grab
+        logging.getLogger("frodo_slam_tpu_torch").removeHandler(failures)
+        if env is None:
+            os.environ.pop("FRODO_RANDOM_SHARE_DECODER", None)
+        else:
+            os.environ["FRODO_RANDOM_SHARE_DECODER"] = env
+    peak = torch.cuda.max_memory_allocated()
+    assert not client.is_alive(), "the client thread hangs"
+    assert rec["error"] is None, rec["error"]
+    v, = viewers
+
+    # a fresh viewer over the finished map, against the store on the host
+    check = web.WebViewer(slam, port=0, interval_s=3600).start()
+    try:
+        assert _until(lambda: check._version > 0, 60), "no snapshot of the finished map"
+        state = json.loads(_http(check.port, "/state.json")[1])
+        pts = np.frombuffer(_http(check.port, "/points.bin")[1], np.float32).reshape(-1, 4)
+    finally:
+        check.stop()
+    store = slam.store
+    slots = viz.live_slots(store)
+    T, X, C, N = (getattr(store, f)[slots].cpu().numpy() for f in ("T_WC", "X_canon", "C", "N"))
+    logical0 = max(0, store.n_total - len(slots))
+    edges = [[i - logical0, j - logical0] for i, j in slam.backend._pairs if i >= logical0 and j >= logical0]
+    ref = _plain_points(T, X, C, N, check.conf_threshold, check.max_points)
+    # the bar 1e-5 relative to max(1, |x|): random-weight pointmaps reach
+    # thousands of units, where one f32 ulp exceeds 1e-5
+    same = pts.shape == ref.shape and len(ref) > 0
+    pts_err = float(np.max(np.abs(pts - ref) / np.maximum(1.0, np.abs(ref)))) if same else None
+    pts_abs_err = float(np.abs(pts - ref).max()) if same else None
+    snap_ms = [ms for _, ms, _ in v.snapshot_log]
+    r = dict(frames=len(frame_ms), keyframes=store.n_size, run_s=run_s,
+             frame_ms=[round(x, 3) for x in frame_ms],
+             median_frame_ms_after_first=statistics.median(frame_ms[1:]),
+             vio_main_median_frame_ms_after_first=vio["median_frame_ms_after_first"],
+             snapshots=len(v.snapshot_log), snapshot_host_ms=[round(x, 3) for x in snap_ms],
+             snapshot_read_ms=[round(x, 3) for x, _, _ in v.snapshot_log],
+             snapshot_bytes=[b for _, _, b in v.snapshot_log],
+             median_snapshot_host_ms=statistics.median(snap_ms) if snap_ms else None,
+             polls=rec["polls"], versions_seen=len(rec["versions"]), max_points_bytes=rec["max_points_bytes"],
+             pause=rec["pause"], viewer_errors=v.errors, check_errors=check.errors,
+             final_points=len(pts), gated_points_max=check.max_points, points_max_err=pts_err,
+             points_max_abs_err=pts_abs_err,
+             final_abs_max=float(np.abs(ref[:, :3]).max()) if len(ref) else 0.0,
+             T_WC_equal=bool(np.array_equal(np.asarray(state["T_WC"], np.float32), T)),
+             edges_equal=state["edges"] == edges, n_edges=len(edges), launches=launches,
+             max_memory_allocated=peak, allocated_at_start=at_start, backend_task_failures=failures.records)
+    emit("viz_main", **r)
+    assert not failures.records, f"errors logged: {failures.records}"
+    assert v.errors == 0 and check.errors == 0, "the viewer counted errors"
+    assert r["frames"] == n_frames and store.n_size == n_frames, (r["frames"], store.n_size)
+    assert rec["polls"] > 0 and r["snapshots"] > 0 and rec["pause"] and rec["pause"]["stepped"] == 1
+    assert max(r["snapshot_bytes"]) <= 16 * v.max_points + 32 * store.capacity
+    assert r["T_WC_equal"] and r["edges_equal"] and state["n_kf"] == len(slots), "state.json is not the store"
+    assert pts.shape == ref.shape and len(ref) > 0 and pts_err <= 1e-5, (pts.shape, ref.shape, pts_err)
+    for name in WRAPPERS:
+        assert launches[name] > 0, f"viz_main never launched {name}"
+    del slam, v, check
+    viewers.clear()
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------------------
+# codebook_main: the ASMK codebook trainer at the record's width
+# ---------------------------------------------------------------------------
+
+def _write_pngs(folder: pathlib.Path, n: int, h: int, w: int, seed=7):
+    """``n`` smooth random h x w frames as PNGs, made in batches of 32."""
+    import PIL.Image
+
+    folder.mkdir(parents=True, exist_ok=True)
+    for i0 in range(0, n, 32):
+        for j, img in enumerate(smooth_random_frames(min(32, n - i0), h, w, seed=seed + i0)):
+            PIL.Image.fromarray((img * 255).astype(np.uint8)).save(folder / f"{i0 + j:04d}.png", compress_level=1)
+
+
+def phase_codebook_main(n_images=224, h=288, w=512, k=65536, iters=20, small=(8192, 512, 5), work=None):
+    """``python -m frodo_slam_tpu_torch.tools.train_codebook`` as its ``main``:
+    the random-weight ViT-L encoder (MASt3RConfig() widths, seed 0) and the
+    seeded random retrieval head (1024 -> 1024, nfeat 300) over ``n_images``
+    smooth random PNGs written under build/chip_smoke/codebook/ and read
+    through load_dataset, then mini-batch k-means to ``k`` words (batch
+    65,536). Checks: the card's k-means against the CPU's at a small size
+    (the first 8,192 features, 512 words, 5 iterations, the same numpy
+    draws); the pickle's centroids finite and of unit norm;
+    ``load_retriever`` on the card loads it as not degraded; a training
+    image inserted with others is retrieved first. Collect ms per image
+    (host, synced), encode + head ms per image (CUDA events), k-means ms per
+    iteration (synced) beside its f32 bound, attention launches, peak
+    memory."""
+    import pickle
+    import shutil
+
+    from frodo_slam_tpu_torch import loader
+    from frodo_slam_tpu_torch.data.datasets import load_dataset
+    from frodo_slam_tpu_torch.slam.system import preprocess_image
+    from frodo_slam_tpu_torch.tools import train_codebook as tc
+
+    work = pathlib.Path(work or ROOT / "build" / "chip_smoke") / "codebook"
+    folder = work / "images"
+    shutil.rmtree(folder, ignore_errors=True)
+    t0 = time.perf_counter()
+    _write_pngs(folder, n_images, h, w)
+    write_s = time.perf_counter() - t0
+    out = work / "codebook.pkl"
+    rec = {}
+    real = dict(collect=tc.collect_features, kmeans=tc.minibatch_kmeans)
+
+    def collect(model, head, dataset, max_images):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        feats = real["collect"](model, head, dataset, max_images)
+        torch.cuda.synchronize()
+        rec.update(collect_s=time.perf_counter() - t, model=model, head=head, feats=feats)
+        return feats
+
+    def kmeans(rng, feats, k, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cents = real["kmeans"](rng, feats, k, **kw)
+        torch.cuda.synchronize()
+        rec["kmeans_s"] = time.perf_counter() - t
+        return cents
+
+    tc.collect_features, tc.minibatch_kmeans = collect, kmeans
+    try:
+        at_start = reset_peak()
+        zero_counts()
+        summary = tc.main(["--dataset", str(folder), "--out", str(out), "--centroids", str(k),
+                           "--max-images", str(n_images), "--iters", str(iters), "--seed", "0"])
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tc.collect_features, tc.minibatch_kmeans = real["collect"], real["kmeans"]
+    model, head, feats = rec.pop("model"), rec.pop("head"), rec.pop("feats")
+    n, d = feats.shape
+
+    # the card against the CPU at a small size, on the same numpy draws
+    sn, sk, sit = small
+    xs = feats[:sn]
+    card = tc.minibatch_kmeans(np.random.default_rng(1), xs, sk, iters=sit)
+    cpu = tc.minibatch_kmeans(np.random.default_rng(1), xs.cpu(), sk, iters=sit)
+    small_err = float((card.cpu() - cpu).abs().max())
+    small_agree = float((tc._assign(xs, card, 8192).cpu() == tc._assign(xs.cpu(), cpu, 8192)).double().mean())
+
+    with open(out, "rb") as f:
+        data = pickle.load(f)
+    cents = data["centroids"]
+    norm_err = float(np.abs(np.linalg.norm(cents.astype(np.float64), axis=1) - 1.0).max())
+    db = loader.load_retriever(model.cfg, codebook_path=str(out), device=DEV)
+    ds = load_dataset(str(folder))
+
+    def encode(i):
+        x = torch.from_numpy(np.ascontiguousarray(preprocess_image(ds[i][1], (h, w), False), np.float32)).to(DEV)
+        return mast3r.encode_image(model, x)[0]
+
+    ids = [0, n_images // 3, 2 * n_images // 3, n_images - 1]
+    for kf, i in enumerate(ids):
+        db.update(encode(i), add_after_query=True, k=5, kf_id=kf)
+    hits = db.update(encode(ids[2]), add_after_query=False, k=5)
+    x = torch.from_numpy(np.ascontiguousarray(preprocess_image(ds[0][1], (h, w), False), np.float32)).to(DEV)
+    encode_ms = cuda_ms(lambda: head.prep_features(mast3r.encode_image(model, x)[0]))
+    batch = min(65536, n)
+    r = dict(images=summary["images"], image_hw=[h, w], features=n, dim=d, words=k, iters=iters, batch=batch,
+             write_pngs_s=write_s, collect_ms_per_image=rec["collect_s"] * 1e3 / n_images,
+             encode_ms_per_image=encode_ms, kmeans_s=rec["kmeans_s"],
+             kmeans_ms_per_iter=rec["kmeans_s"] * 1e3 / iters,
+             kmeans_bound_ms_per_iter=2.0 * batch * d * k / F32_OPS_PER_S * 1e3,
+             small=dict(n=sn, k=sk, iters=sit, max_abs_err=small_err, assign_agree=small_agree),
+             centroids=list(cents.shape), finite=bool(np.isfinite(cents).all()), norm_err=norm_err,
+             degraded=db.degraded, query_hits=hits, query_id=2, launches=launches,
+             attention_per_image=launches["flash_attention"] / n_images,
+             max_memory_allocated=peak, allocated_at_start=at_start)
+    emit("codebook_main", **r)
+    assert n == n_images * head.nfeat and n > k, (n, k)
+    assert small_err <= 1e-5 and small_agree >= 0.999, r["small"]
+    assert r["centroids"] == [k, d] and r["finite"] and norm_err <= 1e-5, (r["centroids"], norm_err)
+    assert not db.degraded, "the trained codebook loads degraded"
+    assert hits and hits[0] == 2, f"the training image was not retrieved first: {hits}"
+    assert launches["flash_attention"] == n_images * model.cfg.enc_depth, launches
+    del model, head, feats, db, card, xs
     torch.cuda.empty_cache()
     return r
 
@@ -1206,6 +1567,8 @@ def main():
     ds = phase_dataset_main()
     reloc = phase_reloc_main()
     vio = phase_vio_main()
+    viz = phase_viz_main(vio)
+    cb = phase_codebook_main()
     _, synth = phase_synthetic()
     # the ray kernel's time on the window case of the edge rows the backend
     # path handed it last
@@ -1218,6 +1581,8 @@ def main():
                              "dataset_main": ds["launches"][name],
                              "reloc_main": reloc["launches"][name],
                              "vio_main": vio["launches"][name],
+                             "viz_main": viz["launches"][name],
+                             "codebook_main": cb["launches"][name],
                              "synthetic": synth[name]}
     kernels = [{
         "name": "refine_matches",

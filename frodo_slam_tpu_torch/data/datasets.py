@@ -11,8 +11,11 @@ port runs on need not have OpenCV. :func:`optimal_new_camera_matrix`,
 :func:`undistort_rectify_map` and :func:`remap_bilinear` reproduce
 ``cv2.getOptimalNewCameraMatrix(alpha=0)``, ``cv2.initUndistortRectifyMap``
 (radial-tangential k1, k2, p1, p2, k3) and ``cv2.remap(INTER_LINEAR)`` with a
-zero border, as OpenCV 5 computes them. MP4 input and the live
-cameras are ROADMAP.md §1 "The rest of the entry points and IO".
+zero border, as OpenCV 5 computes them. Video files (:class:`MP4Dataset`)
+and the live cameras (``data/live.py``) are the exception: a video decoder
+and a camera need OpenCV, as in the JAX package, so those classes import
+it when they are built (:func:`opencv`) and raise an ``ImportError`` naming
+it where it is missing.
 """
 
 from __future__ import annotations
@@ -324,6 +327,44 @@ class SevenScenesDataset(MonocularDataset):
         )
 
 
+def opencv():
+    """The ``cv2`` module, for the video decoder and the live cameras only."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError("video files and live cameras need OpenCV: the module cv2 is not installed") from e
+    return cv2
+
+
+class MP4Dataset(MonocularDataset):
+    """Video file via OpenCV (the reference prefers torchcodec when
+    installed, dataloader.py:231-265). ``subsample`` is a stride over the
+    video's frames, kept inside the dataset."""
+
+    def __init__(self, dataset_path, subsample: int = 1):
+        super().__init__(use_calib=False)
+        self._cv2 = cv2 = opencv()
+        self.dataset_path = pathlib.Path(dataset_path)
+        self.cap = cv2.VideoCapture(str(self.dataset_path))
+        self.fps = self.cap.get(cv2.CAP_PROP_FPS) or 30.0
+        self.total_frames = int(self.cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        self.stride = max(1, subsample)
+
+    def __len__(self):
+        return self.total_frames // self.stride
+
+    def get_timestamp(self, idx):
+        return idx * self.stride / self.fps
+
+    def read_img(self, idx):
+        cv2 = self._cv2
+        self.cap.set(cv2.CAP_PROP_POS_FRAMES, idx * self.stride)
+        ret, img = self.cap.read()
+        if not ret:
+            raise ValueError("failed to read frame")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
 class RGBFiles(MonocularDataset):
     """Folder of images at 30 fps (dataloader.py:268-274)."""
 
@@ -350,13 +391,18 @@ def load_dataset(dataset_path: str, use_calib: bool = False,
         ds = ETH3DDataset(dataset_path, **kw)
     elif "7-scenes" in parts:
         ds = SevenScenesDataset(dataset_path, **kw)
-    elif "realsense" in parts or "webcam" in parts:
-        raise NotImplementedError(
-            'live cameras (realsense, webcam) are ROADMAP.md §1 "The rest of the entry points and IO"')
+    elif "realsense" in parts:
+        from .live import RealsenseDataset
+
+        ds = RealsenseDataset(use_calib=use_calib)
+    elif "webcam" in parts:
+        from .live import WebcamDataset
+
+        ds = WebcamDataset()
     elif parts[-1].split(".")[-1].lower() in ("mp4", "avi", "mov"):
-        raise NotImplementedError('video input (MP4Dataset) is ROADMAP.md §1 "The rest of the entry points and IO"')
+        ds = MP4Dataset(dataset_path, subsample=subsample)
     else:
         ds = RGBFiles(dataset_path)
-    if subsample > 1:
+    if subsample > 1 and not isinstance(ds, MP4Dataset):
         ds.subsample(subsample)
     return ds

@@ -2,11 +2,13 @@
 
     python -m frodo_slam_tpu_torch.main --dataset <path> --config <yaml>
         [--calib <yaml>] [--save-as <name>] [--no-retrieval] [--weights <ckpt>]
+        [--viz [--viz-port 8090]]
 
 The port's copy of the JAX package's ``main.py:22-189``: the upstream loop
 (mono init -> track -> backend on new keyframes -> reloc or new map on loss) over a
-TUM, EuRoC, ETH3D, 7-Scenes or image-folder sequence, on the card unless
-``run(args, device="cpu")``. Outputs as the eval scripts expect them:
+TUM, EuRoC, ETH3D, 7-Scenes, image-folder or video sequence or a live camera
+(``realsense`` / ``webcam`` paths; video and cameras need OpenCV), on the
+card unless ``run(args, device="cpu")``. Outputs as the eval scripts expect them:
 ``logs/<save-as>/<seq>.txt`` (TUM trajectory), ``<seq>.ply``, keyframe PNGs
 and ``<seq>.meta.json``.
 
@@ -15,10 +17,13 @@ Retrieval and relocalization are on unless ``--no-retrieval``
 retrieval assets a random head and codebook, recorded as
 ``"retrieval": "random-fallback"`` in the meta file, with a warning).
 
+``--viz`` serves the live map viewer (:class:`~.viz.web.WebViewer`) on
+``--viz-port`` during the run; the run honours its pause and step controls
+once per frame, and the viewer stops with the run.
+
 Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
 effect (the port's window solve is always f64); ``tpu.placement`` is
-ignored on one card (ROADMAP.md §1 "Multi-GPU placement"). ``--viz`` raises
-``NotImplementedError`` naming its ROADMAP.md §1 item.
+ignored on one card (ROADMAP.md §1 "Multi-GPU placement").
 """
 
 from __future__ import annotations
@@ -46,10 +51,6 @@ def run(args, device=None) -> dict:
     from .models import mast3r
     from .slam.system import SLAM
     from .utils import evaluate
-
-    if getattr(args, "viz", False):
-        raise NotImplementedError(
-            'the live viewer (--viz) is ROADMAP.md §1 "The rest of the entry points and IO"')
 
     cfg = make_config(args.config)
     log.info('tpu.placement %r ignored: the port runs on one card (ROADMAP.md §1 "Multi-GPU placement")',
@@ -84,35 +85,18 @@ def run(args, device=None) -> dict:
                 # the reference saves keyframe PNGs with every --save-as run (main.py:332)
                 keep_keyframe_images=bool(args.save_as))
 
-    frames = PrefetchLoader(dataset, slam.preprocess, slam.device, depth=3, max_frames=args.max_frames)
-    fps_t0, fps_count = time.time(), 0
+    viewer = None
+    if getattr(args, "viz", False):
+        from .viz.web import WebViewer
 
-    def tick():
-        nonlocal fps_t0, fps_count
-        fps_count += 1
-        if fps_count == 30:
-            print(f"FPS: {fps_count / (time.time() - fps_t0):.2f}")
-            fps_t0, fps_count = time.time(), 0
-
-    if bool(cfg["tpu"].get("pipelined_frontend", False)):
-        # one-frame-pipelined frontend: each frame's flags fetch overlaps the
-        # next frame's device work (grab_rgb_pipelined)
-        for timestamp, dev_img in frames:
-            slam.grab_rgb_pipelined(dev_img, timestamp=float(timestamp))
-            tick()
-        slam.flush()
-    else:
-        # one-frame lookahead: grab_rgb enqueues the NEXT frame's encode
-        # before its blocking flags fetch
-        pending = None
-        for timestamp, dev_img in frames:
-            if pending is not None:
-                slam.grab_rgb(pending[1], timestamp=float(pending[0]), next_img=dev_img)
-                tick()
-            pending = (timestamp, dev_img)
-        if pending is not None:
-            slam.grab_rgb(pending[1], timestamp=float(pending[0]))
-    slam.terminate()
+        viewer = WebViewer(slam, port=int(getattr(args, "viz_port", 8090))).start()
+        print(f"live viewer: http://127.0.0.1:{viewer.port}/")
+    try:
+        frames = PrefetchLoader(dataset, slam.preprocess, slam.device, depth=3, max_frames=args.max_frames)
+        _track(slam, cfg, frames, viewer)
+    finally:
+        if viewer is not None:
+            viewer.stop()
 
     retrieval_mode = ("none" if retrieval is None
                       else "random-fallback" if retrieval.degraded else "real")
@@ -146,6 +130,42 @@ def run(args, device=None) -> dict:
     return out
 
 
+def _track(slam, cfg, frames, viewer=None):
+    """The frame loop, then ``terminate``. With a viewer, its pause and step
+    controls are honoured once per frame, before the frame is processed."""
+    fps_t0, fps_count = time.time(), 0
+
+    def tick():
+        nonlocal fps_t0, fps_count
+        fps_count += 1
+        if fps_count == 30:
+            print(f"FPS: {fps_count / (time.time() - fps_t0):.2f}")
+            fps_t0, fps_count = time.time(), 0
+
+    gate = viewer.wait_if_paused if viewer is not None else (lambda: None)
+    if bool(cfg["tpu"].get("pipelined_frontend", False)):
+        # one-frame-pipelined frontend: each frame's flags fetch overlaps the
+        # next frame's device work (grab_rgb_pipelined)
+        for timestamp, dev_img in frames:
+            gate()
+            slam.grab_rgb_pipelined(dev_img, timestamp=float(timestamp))
+            tick()
+        slam.flush()
+    else:
+        # one-frame lookahead: grab_rgb enqueues the NEXT frame's encode
+        # before its blocking flags fetch
+        pending = None
+        for timestamp, dev_img in frames:
+            gate()
+            if pending is not None:
+                slam.grab_rgb(pending[1], timestamp=float(pending[0]), next_img=dev_img)
+                tick()
+            pending = (timestamp, dev_img)
+        if pending is not None:
+            slam.grab_rgb(pending[1], timestamp=float(pending[0]))
+    slam.terminate()
+
+
 def build_parser():
     p = argparse.ArgumentParser(description="frodo-slam-tpu dataset runner (PyTorch/CUDA port)")
     p.add_argument("--dataset", required=True)
@@ -153,8 +173,7 @@ def build_parser():
     p.add_argument("--calib", default=None)
     p.add_argument("--save-as", dest="save_as", default=None)
     p.add_argument("--no-viz", action="store_true", default=True)
-    p.add_argument("--viz", action="store_true",
-                   help='the live viewer (ROADMAP.md §1 "The rest of the entry points and IO")')
+    p.add_argument("--viz", action="store_true", help="serve the live map viewer during the run")
     p.add_argument("--viz-port", type=int, default=8090)
     p.add_argument("--weights", default=None)
     p.add_argument("--no-retrieval", action="store_true")

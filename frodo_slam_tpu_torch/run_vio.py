@@ -2,7 +2,7 @@
 
     python -m frodo_slam_tpu_torch.run_vio --dataset <session.pkl> [--use_odometry]
         [--config configs/base_no_fnn.yaml] [--calib <yaml>] [--every_n_frames 4]
-        [--wall-clock] [--no-retrieval] [--weights <ckpt>]
+        [--wall-clock] [--no-retrieval] [--weights <ckpt>] [--visualize]
 
 The port's copy of the JAX package's ``run_vio.py`` (CLI contract of the
 reference, run_vio.py:245-277): ``--dataset`` replays a recorded session
@@ -10,13 +10,15 @@ reference, run_vio.py:245-277): ``--dataset`` replays a recorded session
 "frame" (BGR uint8), "pose" (SE3 7-vector)}`` rows) through ``SLAM`` in the
 robot VIO mode, with the odometry poses when ``--use_odometry``; ``--robot``
 polls the live robot. It runs on the card unless ``run_dataset(args,
-device="cpu")``.
+device="cpu")``. ``--visualize`` serves the live map viewer
+(:class:`~.viz.web.WebViewer`) from the first frame on; the replay honours
+its pause and step controls once per frame, and the viewer stops with the
+run.
 
 Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
 effect (the port's window solve is always f64); ``--use_multiple_gpu`` and
 ``tpu.placement`` are logged and ignored on one card (ROADMAP.md §1
-"Multi-GPU placement"); ``--visualize`` raises ``NotImplementedError``
-naming its ROADMAP.md §1 item.
+"Multi-GPU placement").
 """
 
 from __future__ import annotations
@@ -29,8 +31,6 @@ import numpy as np
 from .utils.log import get_logger
 
 log = get_logger("run_vio")
-
-VIEWER_ITEM = 'the live viewer (--visualize) is ROADMAP.md §1 "The rest of the entry points and IO"'
 
 
 def _load_calib_K(args, cfg):
@@ -58,8 +58,6 @@ def _setup(args, device):
     from .config import make_config
     from .models import mast3r
 
-    if getattr(args, "visualize", False):
-        raise NotImplementedError(VIEWER_ITEM)
     cfg = make_config(args.config)
     log.info('placement %r (--use_multiple_gpu %s) ignored: the port runs on one card '
              '(ROADMAP.md §1 "Multi-GPU placement")', cfg["tpu"].get("placement"),
@@ -83,6 +81,19 @@ def _make_slam(cfg, K_frame, model, retrieval, img, single_thread, local_opt_mod
                 local_opt_mode=local_opt_mode, device=device)
 
 
+def _start_viewer(slam, args):
+    """The live viewer over ``slam`` when ``--visualize``, else None; on
+    ``args.viz_port`` where the caller sets one (the CLI binds 8090, as the
+    JAX runner does)."""
+    if not getattr(args, "visualize", False):
+        return None
+    from .viz.web import WebViewer
+
+    viewer = WebViewer(slam, port=int(getattr(args, "viz_port", 8090))).start()
+    print(f"live viewer: http://127.0.0.1:{viewer.port}/")
+    return viewer
+
+
 def _grab(slam, cfg, img, ts, odom_pose):
     if bool(cfg["tpu"].get("pipelined_frontend", False)):
         return slam.grab_rgb_pipelined(img, timestamp=ts, odom_pose=odom_pose)
@@ -96,27 +107,34 @@ def run_dataset(args, device=None):
 
     cfg, K_frame, model, retrieval = _setup(args, device)
     data = OdometryData(args.dataset, wall_clock=args.wall_clock, use_odometry=args.use_odometry)
-    slam = None
+    slam = viewer = None
     i = 0
     fps_t0, fps_count = time.time(), 0
-    while True:
-        ts, frame_img, odom_pose = data.get_frame_and_pose()
-        if frame_img is None:
-            break
-        i += 1
-        if i % args.every_n_frames != 0:
-            continue
-        img = np.asarray(frame_img[:, :, ::-1], np.float32) / 255.0  # BGR -> RGB
-        if slam is None:
-            slam = _make_slam(cfg, K_frame, model, retrieval, img, bool(cfg["single_thread"]),
-                              args.use_odometry, device)
-        _grab(slam, cfg, img, ts, odom_pose)
-        fps_count += 1
-        if fps_count == 30:
-            print(f"FPS: {fps_count / (time.time() - fps_t0):.2f}")
-            fps_t0, fps_count = time.time(), 0
-    if slam is not None:
-        slam.terminate()
+    try:
+        while True:
+            ts, frame_img, odom_pose = data.get_frame_and_pose()
+            if frame_img is None:
+                break
+            i += 1
+            if i % args.every_n_frames != 0:
+                continue
+            img = np.asarray(frame_img[:, :, ::-1], np.float32) / 255.0  # BGR -> RGB
+            if slam is None:
+                slam = _make_slam(cfg, K_frame, model, retrieval, img, bool(cfg["single_thread"]),
+                                  args.use_odometry, device)
+                viewer = _start_viewer(slam, args)
+            if viewer is not None:
+                viewer.wait_if_paused()  # the browser's pause/step control
+            _grab(slam, cfg, img, ts, odom_pose)
+            fps_count += 1
+            if fps_count == 30:
+                print(f"FPS: {fps_count / (time.time() - fps_t0):.2f}")
+                fps_t0, fps_count = time.time(), 0
+        if slam is not None:
+            slam.terminate()
+    finally:
+        if viewer is not None:
+            viewer.stop()
     return slam
 
 
@@ -128,7 +146,7 @@ def run_robot(args, device=None):  # pragma: no cover - hardware
     cfg, K_frame, model, retrieval = _setup(args, device)
     odo = StraightOrSpinOdometry(robot_type=args.robot_type)
     odo.start()
-    slam = None
+    slam = viewer = None
     try:
         while True:
             ts, frame_img, odom_pose = odo.get_frame_and_pose()
@@ -138,9 +156,12 @@ def run_robot(args, device=None):  # pragma: no cover - hardware
             img = np.asarray(frame_img[:, :, ::-1], np.float32) / 255.0
             if slam is None:
                 slam = _make_slam(cfg, K_frame, model, retrieval, img, False, True, device)
+                viewer = _start_viewer(slam, args)
             _grab(slam, cfg, img, ts, odom_pose if args.use_odometry else None)
     finally:
         odo.stop()
+        if viewer is not None:
+            viewer.stop()
         if slam is not None:
             slam.terminate()
 
@@ -153,8 +174,7 @@ def build_parser():
     p.add_argument("--config", default="configs/base_no_fnn.yaml")
     p.add_argument("--calib", default=None)
     p.add_argument("--weights", default=None)
-    p.add_argument("--visualize", action="store_true",
-                   help='the live viewer (ROADMAP.md §1 "The rest of the entry points and IO")')
+    p.add_argument("--visualize", action="store_true", help="serve the live map viewer during the run")
     p.add_argument("--use_odometry", action="store_true")
     p.add_argument("--wall-clock", action="store_true")
     p.add_argument("--every_n_frames", type=int, default=4)  # run_vio.py:218

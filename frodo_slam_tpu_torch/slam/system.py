@@ -65,6 +65,24 @@ from .tracker import TrackingCfg, track_step
 log = get_logger("slam")
 
 
+def preprocess_image(img: np.ndarray, img_hw: Tuple[int, int], portrait: bool) -> np.ndarray:
+    """One frame (H, W, 3) in [0, 1] -> the (1, h, w, 3) ImgNorm'd network
+    input in the landscape storage shape ``img_hw``: resized to its long
+    side unless it already has the network shape, and transposed when the
+    true shape is portrait (``SLAM.preprocess``)."""
+    h, w = img_hw
+    true_shape = (w, h) if portrait else (h, w)
+    normalized = False
+    if img.shape[:2] != true_shape and img.shape[:2] != (h, w):
+        img = resize_img(img, max(img_hw))["img"][0]  # ImgNorm'd
+        normalized = True
+    if portrait and img.shape[:2] == true_shape:
+        img = np.swapaxes(img, 0, 1)
+    if not normalized:
+        img = (img.astype(np.float32) - 0.5) / 0.5 if img.max() <= 1.0 else img
+    return img[None] if img.ndim == 3 else img
+
+
 class SLAM:
     """Single-process SLAM system (``VIO`` class API of the reference).
 
@@ -331,17 +349,7 @@ class SLAM:
     def preprocess(self, img: np.ndarray) -> np.ndarray:
         """Host preprocessing: resize/normalize to the network input (and
         transpose portrait frames into the landscape storage layout)."""
-        h, w = self.img_hw  # landscape storage shape
-        true_shape = (w, h) if self.portrait else (h, w)
-        normalized = False
-        if img.shape[:2] != true_shape and img.shape[:2] != (h, w):
-            img = resize_img(img, max(self.img_hw))["img"][0]  # ImgNorm'd
-            normalized = True
-        if self.portrait and img.shape[:2] == true_shape:
-            img = np.swapaxes(img, 0, 1)
-        if not normalized:
-            img = (img.astype(np.float32) - 0.5) / 0.5 if img.max() <= 1.0 else img
-        return img[None] if img.ndim == 3 else img
+        return preprocess_image(img, self.img_hw, self.portrait)
 
     def _make_frame(self, img, T_WC) -> frame_mod.Frame:
         if self._encode_cache is not None and self._encode_cache[0] is img:

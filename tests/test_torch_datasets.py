@@ -13,7 +13,9 @@ The port undistorts in numpy (no OpenCV); the JAX package calls
   1/32 steps; the port's are floating point).
 
 Then the path-keyword dispatch, the timestamps and ``get_img_shape`` on
-synthetic TUM, EuRoC, ETH3D, 7-Scenes and image-folder layouts.
+synthetic TUM, EuRoC, ETH3D, 7-Scenes and image-folder layouts; video files
+(a clip written here with OpenCV) and the live cameras (fake OpenCV and
+RealSense modules) through both packages, which both read them with OpenCV.
 """
 
 import pathlib
@@ -186,7 +188,126 @@ def test_subsample(tmp_path):
     assert list(map(str, got.timestamps)) == list(map(str, want.timestamps)) and len(got) == 2
 
 
+# ---------------------------------------------------------------------------
+# video files and live cameras (OpenCV, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _write_clip(path: pathlib.Path, n=7, h=48, w=64, fps=10.0):
+    """A short mp4v clip whose frames differ (a moving bar, a grey ramp)."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    assert writer.isOpened()
+    for i in range(n):
+        img = np.full((h, w, 3), 20 + 30 * i, np.uint8)
+        img[:, 6 * i:6 * i + 8] = (255, 40, 0)
+        writer.write(img)
+    writer.release()
+
+
+class _FakeCapture:
+    """A camera that returns numbered BGR frames."""
+
+    def __init__(self, index):
+        self.index, self.n = index, 0
+
+    def read(self):
+        self.n += 1
+        return True, np.full((24, 32, 3), (self.n, 2 * self.n, 3 * self.n), np.uint8)
+
+
+def _fake_cv2():
+    import types
+
+    return types.SimpleNamespace(VideoCapture=_FakeCapture, COLOR_BGR2RGB=4,
+                                 cvtColor=lambda img, code: img[..., ::-1].copy())
+
+
+def _fake_realsense():
+    """pyrealsense2 as RealsenseDataset calls it: a pipeline of numbered
+    640x480 BGR frames with millisecond timestamps."""
+    import types
+
+    class Frameset:
+        def __init__(self, n):
+            self.n = n
+
+        def get_timestamp(self):
+            return 1000.0 + 33.0 * self.n
+
+        def get_color_frame(self):
+            data = np.full((480, 640, 3), (self.n, 7, 200), np.uint8)
+            return types.SimpleNamespace(get_data=lambda: data)
+
+    class Pipeline:
+        n = 0
+
+        def start(self, cfg):
+            return types.SimpleNamespace(get_stream=lambda s: s)
+
+        def wait_for_frames(self):
+            self.n += 1
+            return Frameset(self.n)
+
+    intr = types.SimpleNamespace(fx=600.0, fy=610.0, ppx=318.0, ppy=242.0)
+    return types.SimpleNamespace(
+        pipeline=Pipeline, stream=types.SimpleNamespace(color="color"),
+        format=types.SimpleNamespace(bgr8="bgr8"),
+        config=lambda: types.SimpleNamespace(enable_stream=lambda *a: None),
+        video_stream_profile=lambda s: types.SimpleNamespace(get_intrinsics=lambda: intr))
+
+
 @pytest.mark.parametrize("path", ["data/realsense", "data/webcam", "data/clip.mp4", "data/clip.MOV"])
-def test_live_and_video_inputs_name_their_roadmap_item(path):
-    with pytest.raises(NotImplementedError, match="The rest of the entry points and IO"):
+def test_live_and_video_inputs_name_their_roadmap_item(path, tmp_path, monkeypatch):
+    """Video files and live cameras reach their classes in both packages and
+    read alike (the test keeps the name it had while the port raised for
+    them). A clip written here is read through both ``load_dataset``s, with
+    ``subsample`` 1 and 2: lengths, timestamps and frames equal. The cameras
+    run against fake ``cv2`` / ``pyrealsense2`` modules: the same frames,
+    timestamps and calibration."""
+    import sys
+
+    if path.startswith("data/clip"):
+        clip = tmp_path / path
+        _write_clip(clip)
+        for sub in (1, 2):
+            got, want = tds.load_dataset(str(clip), subsample=sub), jds.load_dataset(str(clip), subsample=sub)
+            assert type(got) is tds.MP4Dataset and type(want).__name__ == "MP4Dataset"
+            assert len(got) == len(want) == 7 // sub and got.fps == want.fps == 10.0
+            assert got.get_img_shape() == want.get_img_shape() == ((384, 512), (48, 64))
+            for i in range(len(got)):
+                (ts, img), (ts_j, img_j) = got[i], want[i]
+                assert ts == ts_j == i * sub / 10.0
+                assert img.dtype == img_j.dtype == np.float32
+                np.testing.assert_array_equal(img, img_j)
+            assert not np.array_equal(got[0][1], got[1][1])
+        return
+    monkeypatch.setitem(sys.modules, "cv2", _fake_cv2())
+    monkeypatch.setitem(sys.modules, "pyrealsense2", _fake_realsense())
+    for use_calib in (False, True):
+        got = tds.load_dataset(path, use_calib=use_calib)
+        want = jds.load_dataset(path, use_calib=use_calib)
+        assert type(got).__name__ == type(want).__name__ == ("RealsenseDataset" if "realsense" in path
+                                                             else "WebcamDataset")
+        assert len(got) == len(want) == 999999 and got.save_results is want.save_results is False
+        assert got.has_calib() == want.has_calib() == (use_calib and "realsense" in path)
+        if got.has_calib():
+            np.testing.assert_allclose(got.camera_intrinsics.K_frame, want.camera_intrinsics.K_frame, rtol=1e-9)
+        for i in range(3):
+            (ts, img), (ts_j, img_j) = got[i], want[i]
+            assert ts == ts_j
+            np.testing.assert_array_equal(img, img_j)
+        assert got.timestamps == want.timestamps and len(got.timestamps) == 3
+
+
+@pytest.mark.parametrize("path,missing", [("data/clip.mp4", "cv2"), ("data/webcam", "cv2"),
+                                          ("data/realsense", "cv2"), ("data/realsense", "pyrealsense2")])
+def test_video_and_cameras_name_the_module_they_miss(path, missing, monkeypatch):
+    """Without OpenCV (or the RealSense SDK) the class raises an
+    ``ImportError`` that names the module; nothing falls back."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "cv2", _fake_cv2())
+    monkeypatch.setitem(sys.modules, "pyrealsense2", _fake_realsense())
+    monkeypatch.setitem(sys.modules, missing, None)
+    with pytest.raises(ImportError, match=missing):
         tds.load_dataset(path)

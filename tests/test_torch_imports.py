@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``frodo_slam_tpu_torch`` (nor
 ``chip_smoke.py``, ``kernel_ab.py``) imports ``jax`` or anything of ``frodo_slam_tpu``, no
 module of the port imports ``cv2`` (but for the live robot poller's ORB yaw,
-inside its functions: hardware the tests never run) or calls the library
+inside its functions: hardware the tests never run, and the one import of
+the video decoder and the cameras, inside ``data.datasets.opencv``) or calls the library
 attention ``scaled_dot_product_attention``, and its entry points run on the
 card unless asked for the CPU."""
 
@@ -29,8 +30,14 @@ VIO_MODULES = ["frodo_slam_tpu_torch.run_vio", "frodo_slam_tpu_torch.slam.odomet
                "frodo_slam_tpu_torch.slam.pgo", "frodo_slam_tpu_torch.slam.height_prior",
                "frodo_slam_tpu_torch.slam.imu", "frodo_slam_tpu_torch.slam.local_mapping",
                "frodo_slam_tpu_torch.utils.checkpoint", "frodo_slam_tpu_torch.utils.sigma_compute"]
-# functions that may import OpenCV in their bodies: the live robot poller
-CV2_FUNCTIONS = {"frodo_slam_tpu_torch/slam/odometry.py": {"yaw_from_rays", "_loop"}}
+# the viewer, the video and camera inputs and the codebook trainer
+VIZ_MODULES = ["frodo_slam_tpu_torch.viz", "frodo_slam_tpu_torch.viz.web",
+               "frodo_slam_tpu_torch.viz.visualization", "frodo_slam_tpu_torch.data.live",
+               "frodo_slam_tpu_torch.tools.train_codebook"]
+# functions that may import OpenCV in their bodies: the live robot poller,
+# and the one import of the video decoder and the cameras
+CV2_FUNCTIONS = {"frodo_slam_tpu_torch/slam/odometry.py": {"yaw_from_rays", "_loop"},
+                 "frodo_slam_tpu_torch/data/datasets.py": {"opencv"}}
 
 torch.set_num_threads(1)
 
@@ -81,6 +88,25 @@ def test_vio_modules_are_covered():
     for rel, names in CV2_FUNCTIONS.items():
         tree = ast.parse((ROOT / rel).read_text())
         assert names <= {f.name for f in ast.walk(tree) if isinstance(f, ast.FunctionDef)}, rel
+
+
+def test_viz_modules_are_covered():
+    assert set(VIZ_MODULES) <= set(MODULES)
+
+
+def test_importing_the_viewer_loads_no_matplotlib_and_no_opencv():
+    """The card's machine has no matplotlib: the viewer, the exports and the
+    trainer import it (and OpenCV) only inside the functions that need it."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {VIZ_MODULES + RUNNER_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "leaked = sorted(k for k in sys.modules if k.split('.')[0] in ('matplotlib', 'cv2', 'pyrealsense2'))\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)}, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_importing_every_module_loads_no_jax():

@@ -46,6 +46,7 @@ from frodo_slam_tpu_torch.data.prefetch import PrefetchLoader  # noqa: E402
 from frodo_slam_tpu_torch.models import convert as tconvert  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r as tmast3r  # noqa: E402
 from frodo_slam_tpu_torch.slam import system as tsystem  # noqa: E402
+from test_torch_viz import check_served_and_stopped, spy_viewers  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -186,7 +187,8 @@ def test_port_runner_matches_jax_runner(tmp_path, monkeypatch, weights, case):
 def test_runner_refuses_what_later_slices_bring(tmp_path, monkeypatch, weights):
     """Retrieval is ported: without ``--no-retrieval`` the runner takes the
     random head + codebook fallback, relocalizes, and records it in the meta
-    file. ``--viz`` still raises, naming its ROADMAP item."""
+    file. ``--viz`` is ported too: the live viewer serves during the run (it
+    is fetched over HTTP at every frame gate) and is stopped after it."""
     _, _, model, tcfg = weights
     seq = _folder(tmp_path)
     cfg = tmp_path / "cfg.yaml"
@@ -212,8 +214,11 @@ def test_runner_refuses_what_later_slices_bring(tmp_path, monkeypatch, weights):
     slam, = created
     assert slam.retrieval is not None and slam.use_reloc and slam.retrieval.degraded
     assert slam.retrieval.kf_counter == 4  # every keyframe inserted
-    with pytest.raises(NotImplementedError, match="The rest of the entry points and IO"):
-        tmain.run(types.SimpleNamespace(**base, save_as=None, no_retrieval=True, viz=True), device="cpu")
+    viewers = spy_viewers(monkeypatch)
+    tmain.run(types.SimpleNamespace(**base, save_as=None, no_retrieval=True, viz=True, viz_port=8090),
+              device="cpu")
+    check_served_and_stopped(viewers, n_gates=4)  # one gate a frame
+    assert viewers[0].slam is created[-1] and viewers[0].slam.store.n_total == 4
 
 
 def test_cli_parser_matches_jax():

@@ -130,7 +130,9 @@ def test_next_img_lookahead_equals_plain(weights):
         np.testing.assert_array_equal(got[1], want[1])
 
 
-def test_unported_options_raise(weights):
+def test_unported_options_raise(weights, tmp_path, monkeypatch):
+    """Options the later slices brought now build and run (the test keeps
+    the name it had while they raised)."""
     params, _ = weights
     model = tmast3r.MASt3R(tmast3r.tiny_config())
     cfg = t_make_config()
@@ -138,11 +140,37 @@ def test_unported_options_raise(weights):
     vio = TSLAM(cfg, model, (H, W), device="cpu", local_opt_mode=True)
     assert vio.local_opt_mode and vio.ba_cfg.sigma_ray == float(cfg.local_opt.sigma_ray_odom_mode)
     assert TSLAM(t_make_config(height_prior={"enabled": True}), model, (H, W), device="cpu").height_prior_enabled
-    # the live viewer still raises, naming its item
-    from frodo_slam_tpu_torch import main as tmain
+    # the live viewer is ported: main.run(viz=True) serves it during the run
+    # and stops it after the run
+    import PIL.Image
 
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "The rest of the entry points and IO"'):
-        tmain.run(types.SimpleNamespace(viz=True))
+    from frodo_slam_tpu_torch import main as tmain
+    from frodo_slam_tpu_torch.data import datasets as tds
+    from test_torch_viz import check_served_and_stopped, spy_viewers
+
+    seq = tmp_path / "seq"
+    seq.mkdir()
+    for i, img in enumerate(_imgs()[:3]):
+        PIL.Image.fromarray((img * 255).astype(np.uint8)).save(seq / f"{i:03d}.png")
+    real_load = tds.load_dataset
+
+    def load_at_w(path, **kw):
+        ds = real_load(path, **kw)
+        ds.img_size = W  # the frames' own size instead of the 512 long side
+        return ds
+
+    monkeypatch.setattr(tds, "load_dataset", load_at_w)
+    monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, model.cfg))
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cfg_yaml = tmp_path / "viz.yaml"
+    cfg_yaml.write_text(f'inherit: "{root / "configs" / "base.yaml"}"\n'
+                        + "".join(f"{k}: {v}\n" for k, v in _overrides(1.1).items()))
+    viewers = spy_viewers(monkeypatch)
+    tmain.run(types.SimpleNamespace(dataset=str(seq), config=str(cfg_yaml), calib=None, save_as=None, viz=True,
+                                    viz_port=8090, weights=None, no_retrieval=True, max_frames=None),
+              device="cpu")
+    check_served_and_stopped(viewers, n_gates=3)
+    assert viewers[0].slam.frame_count == 3 and viewers[0].slam.device.type == "cpu"
     # retrieval and relocalization are ported: a database builds, reloc on by default
     db = tloader.load_retriever(tmast3r.tiny_config(), path="no/such/retrieval.pth", device="cpu")
     slam = TSLAM(cfg, model, (H, W), retrieval_db=db, use_reloc=True, device="cpu")

@@ -270,11 +270,41 @@ def test_threaded_vio_finishes_with_finite_poses(weights):
     assert len(slam.backend._odom_pairs) == 5 and slam.pgo.n_total == 5
 
 
-def test_visualize_raises_naming_its_item():
-    from frodo_slam_tpu_torch import run_vio
+def test_visualize_raises_naming_its_item(weights, tmp_path, monkeypatch):
+    """``run_vio.run_dataset(visualize=True)`` serves the live viewer during
+    the replay and stops it after (the test keeps the name it had while the
+    port raised): a threaded VIO run, every frame a keyframe, so that the
+    backend worker writes the store while the viewer reads it."""
+    import pathlib
+    import pickle
 
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1 "The rest of the entry points and IO"'):
-        run_vio.run_dataset(types.SimpleNamespace(visualize=True, config=None))
+    from frodo_slam_tpu_torch import loader as tloader
+    from frodo_slam_tpu_torch import run_vio
+    from frodo_slam_tpu_torch.data import image as timage
+    from frodo_slam_tpu_torch.slam import system as tsystem
+    from test_torch_viz import check_served_and_stopped, spy_viewers
+
+    model = _port_model(weights[0])
+    monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, model.cfg))
+    real = timage.resize_img
+    for mod in (timage, tsystem):
+        monkeypatch.setattr(mod, "resize_img", lambda img, size=512, **kw: real(img, W, **kw))
+    frame = (_img()[:, :, ::-1] * 255).astype(np.uint8)  # BGR, as recorded
+    session = tmp_path / "session_mini.pkl"
+    with open(session, "wb") as f:
+        pickle.dump([{"timestamp": 0.1 * i, "frame": frame, "pose": _odom(i)} for i in range(4)], f)
+    root = pathlib.Path(__file__).resolve().parents[1]
+    cfg = tmp_path / "vio_viz.yaml"
+    cfg.write_text(f'inherit: "{root / "configs" / "base.yaml"}"\nsingle_thread: false\n'
+                   + "".join(f"{k}: {v}\n" for k, v in OVERRIDES.items()))
+    viewers = spy_viewers(monkeypatch)
+    args = types.SimpleNamespace(dataset=str(session), config=str(cfg), calib=None, weights=None,
+                                 no_retrieval=True, use_odometry=True, wall_clock=False, every_n_frames=1,
+                                 visualize=True, use_multiple_gpu=False)
+    slam = run_vio.run_dataset(args, device="cpu")
+    check_served_and_stopped(viewers, n_gates=4)
+    assert viewers[0].slam is slam and not slam.single_thread and slam.store.n_total == 4
+    assert slam._backend_worker is None and len(slam.backend._odom_pairs) == 3
 
 
 # ---------------------------------------------------------------------------
