@@ -54,7 +54,24 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      (serialized run only: its stages are timed between syncs), GN
      iterations and ray-kernel launches per solve, edges, peak memory; any
      backend task that failed (the worker logs it) fails the phase;
- 12. dataset_main: the dataset runner, ``frodo_slam_tpu_torch.main.run``,
+ 12. placement_main: the multi-card placement on aliases of the one card.
+     What ``default_placement`` makes of this machine's cards (None at one
+     card). ViT-L 288x512 with shared random decoders: one fixed batch of
+     two pairs decoded split over a dp 2 x tp 2 grid of four aliases of
+     cuda:0 against the unsplit bf16 decode and an f32 copy of the model
+     (per output within 0.1 of its largest magnitude, and no further from
+     the f32 decode than twice the unsplit one; attention at the tp shard's
+     (2, 6, 576, 64)); then backend_main's 12 frames three times: unplaced
+     serialized, ``shared`` dp 2 x tp 2 serialized, ``overlap`` (the tracker
+     on slot 0, dp 2 x tp 1 on slots 1-2) threaded, each ending in three
+     pairs padded over the ranks: the same keyframes and pairs, poses within
+     1e-3 of the unplaced run, the ray kernel once a GN iteration and edge
+     part; one window solve split over four edge parts against the unsplit
+     solve of the same edges (1e-5). Frame, task and solve ms and peak
+     memory, labelled as aliases of one card (no multi-card speed). With
+     two cards, the bf16 attention on cuda:1 against its plain version;
+     with one, a line saying why it did not run;
+ 13. dataset_main: the dataset runner, ``frodo_slam_tpu_torch.main.run``,
      on a TUM fr1 sequence that this script writes (24 identical 640x480
      PNGs under build/chip_smoke/), with a config that inherits
      configs/eval_calib.yaml (calibrated tracker and backend, subsample 2,
@@ -62,7 +79,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      512x384 with shared random decoders, --no-retrieval --save-as: finite
      trajectory rows, the .ply, one PNG per keyframe; per-frame and
      per-solve ms, edge rows per window, peak memory;
- 13. reloc_main: retrieval loop closure and relocalization through threaded
+ 14. reloc_main: retrieval loop closure and relocalization through threaded
      SLAM(use_backend=True, use_reloc=True) at ViT-L 288x512 (shared random
      decoders), the retrieval head at 1024 -> 1024 with nfeat 300 and a
      random codebook of 65,536 words (256 MiB on the card): a camera panning
@@ -75,7 +92,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      against their numpy plain versions at the query's shapes. Per-keyframe
      retrieval ms split into query and insert, relocalization ms, loop
      edges, launches;
- 14. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
+ 15. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
      on a recorded session that this script writes under build/chip_smoke/
      (16 identical 360x640 BGR frames, an odometry pose per frame,
      --use_odometry, every_n_frames 1), ViT-L at 288x512 with shared random
@@ -84,7 +101,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      poses, odometry factors, every kernel launched, no failed backend
      task; per-frame and per-task ms, the PGO's ms and live count, plane
      fits (rows, ms, live targets), peak memory;
- 15. viz_main: the same run with ``--visualize``: the live map viewer on a
+ 16. viz_main: the same run with ``--visualize``: the live map viewer on a
      free port while the backend worker writes the store in place; a client
      thread polls /state.json and /points.bin every 0.2 s, pauses the run
      after frame 4 (no frame for 1 s), steps exactly one frame, resumes, and
@@ -93,7 +110,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      edges, and the points numpy recomputes from the store on the host
      (1e-5 relative to max(1, |x|)); no viewer error. Frame ms beside
      vio_main's, snapshots (host ms, bytes fetched), peak memory;
- 16. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
+ 17. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
      (its ``main``) over 224 smooth random 288x512 PNGs it writes under
      build/chip_smoke/codebook/: the random-weight ViT-L encoder and the
      seeded retrieval head (1024 -> 1024, nfeat 300), 67,200 features,
@@ -103,19 +120,20 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      the pickle loads not degraded; a training image is retrieved first.
      Encode ms per image, k-means ms per iteration beside its f32 bound,
      attention launches (24 an image), peak memory;
- 17. synthetic: the port's oracle harness (``python -m
+ 18. synthetic: the port's oracle harness (``python -m
      frodo_slam_tpu_torch.tools.eval_synthetic --device cuda``) in
      subprocesses: the straight row (10 frames at 3 mm), the --per-frame row
      (warm frames) and the loop row (14 frames at 4 mm, with and without
      retrieval) and the VIO row (16 frames at 2 mm, with and without
      odometry), each held to the JAX package's bars; ATEs and launches;
- 18. the script's wall time; the kernels line; the device line (last line
+ 19. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
-On every path (6, 11, 12, 13, 14, 15, 16 and 17) the kernel launch counters
-are zeroed just before it and read just after; each path must launch each
-of its kernels (the oracle of 17 replaces the model: no attention there;
-the trainer of 16 runs the encoder only: attention alone).
+On every path (6, 11, 12, 13, 14, 15, 16, 17 and 18; each run of 11 and 12)
+the kernel launch counters are zeroed just before it and read just after;
+each path must launch each of its kernels (the oracle of 18 replaces the
+model: no attention there; the trainer of 17 runs the encoder only:
+attention alone).
 Its peak memory window starts after a garbage collection, and the bytes
 still allocated then are printed beside the peak.
 
@@ -150,7 +168,11 @@ from frodo_slam_tpu_torch.config import make_config  # noqa: E402
 from frodo_slam_tpu_torch.data.synthetic import smooth_random_frames  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r  # noqa: E402
 from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel  # noqa: E402
+from frodo_slam_tpu_torch.models import layers as layers_mod  # noqa: E402
 from frodo_slam_tpu_torch.ops import lie  # noqa: E402
+from frodo_slam_tpu_torch.parallel import mesh  # noqa: E402
+from frodo_slam_tpu_torch.slam import global_opt  # noqa: E402
+from frodo_slam_tpu_torch.slam.inference import decode_symmetric_batch, decode_symmetric_split  # noqa: E402
 from frodo_slam_tpu_torch.slam import frame as frame_mod  # noqa: E402
 from frodo_slam_tpu_torch.slam.backend import BackendGraph  # noqa: E402
 from frodo_slam_tpu_torch.slam import tracker  # noqa: E402
@@ -284,12 +306,20 @@ def phase_refine():
 
 # (B, H, Nq, Nk, D, dtype): the encoder at 512x384 and 288x512, the two
 # decoders batched, a ragged N, the backend's pair batch; f32 at head dims
-# 32 and 24; the B = 1 decoder passes at 288x512 and 512x384
+# 32 and 24; the B = 1 decoder passes at 288x512 and 512x384; at 288x512
+# the shapes placement_main gives it: a tp = 2 shard's 6 heads at B = 1 (a
+# consecutive pair's missing direction), B = 2 (the fixed pair batch's one
+# pair a rank) and B = 4 (the shared run's two extra pairs a rank, both
+# directions), the overlap run's tp = 1 rank at B = 4 with 12 heads, and
+# the unplaced run's three extra pairs at B = 6
 ATTN_SHAPES = [(1, 16, 768, 768, 64, torch.bfloat16), (2, 12, 768, 768, 64, torch.bfloat16),
                (1, 16, 576, 576, 64, torch.bfloat16), (1, 16, 700, 700, 64, torch.bfloat16),
                (4, 12, 768, 768, 64, torch.bfloat16), (1, 12, 768, 640, 64, torch.bfloat16),
                (2, 2, 96, 96, 32, torch.float32), (1, 2, 100, 77, 24, torch.float32),
-               (1, 12, 576, 576, 64, torch.bfloat16), (1, 12, 768, 768, 64, torch.bfloat16)]
+               (1, 12, 576, 576, 64, torch.bfloat16), (1, 12, 768, 768, 64, torch.bfloat16),
+               (1, 6, 576, 576, 64, torch.bfloat16), (2, 6, 576, 576, 64, torch.bfloat16),
+               (4, 6, 576, 576, 64, torch.bfloat16), (4, 12, 576, 576, 64, torch.bfloat16),
+               (6, 12, 576, 576, 64, torch.bfloat16)]
 def attention_bound(B, H, Nq, Nk, D, dtype):
     """Least time for one call: 4 B H Nq Nk D operations (two products) at
     the type's peak vs q, k, v read once and o written once over the memory
@@ -713,11 +743,15 @@ def _instrument(slam, rec, timed):
     be.solve_window_rays = wrap("solve", be.solve_window_rays)
 
 
-def _backend_run(model, frames, single_thread, extra_pairs):
+def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phase="backend_main"):
+    """``extra_pairs`` (0, 2 or 3): after the run, one add_factors of that
+    many pairs with the newest keyframe (n-2: consecutive, 2 and 0: loop
+    closures) and a window solve. Each solve launches the ray kernel once a
+    GN iteration and edge part."""
     failures = _Failures()
     logging.getLogger("frodo_slam_tpu_torch").addHandler(failures)
     slam = SLAM(_backend_cfg(), model, frames[0].shape[:2], use_backend=True,
-                single_thread=single_thread)
+                single_thread=single_thread, placement=placement)
     rec = []
     _instrument(slam, rec, timed=single_thread)
     at_start = reset_peak()
@@ -735,13 +769,15 @@ def _backend_run(model, frames, single_thread, extra_pairs):
     run_s = time.perf_counter() - t_run
     if extra_pairs:
         n = slam.store.n_total
-        slam.backend.add_factors(slam.store, [n - 2, 2], [n - 1, n - 1])  # one consecutive, one loop
+        ii = [n - 2, 2, 0][:extra_pairs]
+        slam.backend.add_factors(slam.store, ii, [n - 1] * len(ii))
         slam.backend.solve_GN_rays(slam.store)
     torch.cuda.synchronize()
     launches = read_counts()
     logging.getLogger("frodo_slam_tpu_torch").removeHandler(failures)
     poses = slam.keyframe_poses()[1]
     solves = [r for r in rec if r["stage"] == "solve"]
+    parts = [1 if placement is None else len(mesh.edge_parts(r["edge_rows"], placement)) for r in solves]
     out = dict(single_thread=single_thread, frames=len(frames), run_s=run_s,
                frame_ms=[round(x, 3) for x in ms], median_frame_ms_after_first=statistics.median(ms[1:]),
                decode_match_ms=[round(r["ms"], 3) for r in rec
@@ -751,10 +787,14 @@ def _backend_run(model, frames, single_thread, extra_pairs):
                edge_rows=[r["edge_rows"] for r in solves], window_poses=[r["poses"] for r in solves],
                pairs=len(slam.backend._pairs), n_odom=slam.backend._n_odom, launches=launches,
                max_memory_allocated=torch.cuda.max_memory_allocated(), allocated_at_start=at_start,
-               joined=joined,
+               joined=joined, edge_parts_per_solve=parts,
                backend_task_failures=failures.records, extra_pairs=extra_pairs,
-               ok_new_kf=[sum(f[0] for f in flags), sum(f[1] for f in flags)])
-    emit("backend_main", **out)
+               ok_new_kf=[sum(f[0] for f in flags), sum(f[1] for f in flags)],
+               poses=poses.tolist(), pair_list=[list(q) for q in slam.backend._pairs])
+    if placement is not None:
+        out.update(dp=placement.dp, tp=placement.tp, slots=list(placement.backend_slots),
+                   note="aliases of one card: not a multi-card speed")
+    emit(phase, **{k: v for k, v in out.items() if k not in ("poses", "pair_list")})
     assert not failures.records, f"backend tasks failed: {failures.records}"
     assert joined, "the threaded backend did not join"
     assert all(f == (True, True) for f in flags), flags
@@ -762,8 +802,9 @@ def _backend_run(model, frames, single_thread, extra_pairs):
     assert launches["ray_edge_systems"] > 0, "the backend never launched the ray kernel"
     assert launches["refine_matches"] > 0, "the backend path never launched the refine kernel"
     assert launches["flash_attention"] > 0, "the backend path never launched the attention kernel"
-    assert launches["ray_edge_systems"] == sum(out["gn_iters"]) == sum(out["ray_launches_per_solve"])
-    assert len(solves) == len(frames) - 1 + int(extra_pairs)
+    assert launches["ray_edge_systems"] == sum(out["ray_launches_per_solve"])
+    assert out["ray_launches_per_solve"] == [i * k for i, k in zip(out["gn_iters"], parts)]
+    assert len(solves) == len(frames) - 1 + int(extra_pairs > 0)
     return out
 
 
@@ -773,10 +814,185 @@ def phase_backend_main(n_frames=12, hw=(288, 512), model_cfg=None):
     model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
     model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
     frames = smooth_random_frames(1, h, w, seed=3) * n_frames
-    ser = _backend_run(model, frames, single_thread=True, extra_pairs=True)
-    thr = _backend_run(model, frames, single_thread=False, extra_pairs=False)
+    ser = _backend_run(model, frames, single_thread=True, extra_pairs=2)
+    thr = _backend_run(model, frames, single_thread=False, extra_pairs=0)
     torch.cuda.empty_cache()
     return ser, thr
+
+
+# ---------------------------------------------------------------------------
+# placement_main: the multi-card placement on aliases of one card
+# ---------------------------------------------------------------------------
+
+# split decode vs unsplit, per output relative to max(1, its largest
+# magnitude): bf16 partial sums round at other places. The CPU test
+# (tests/test_torch_placement.py::test_tp_split_decode_bf16_bar, tiny width)
+# measures at most 0.041, and the split at most 1.7x as far from the f32
+# decode as the unsplit bf16 decode is
+SPLIT_DECODE_BAR = 0.1
+SPLIT_DECODE_F32_RATIO = 2.0
+# a window solve split vs unsplit on the same edges (f32 systems, f64 solve)
+SPLIT_SOLVE_BAR = 1e-5
+# whole runs, placed vs unplaced, on identical frames: the runs read 4.4e-6
+# and 4.1e-6 (NVIDIA H100 80GB HBM3, 700.00 W). On identical frames the
+# window poses stay near identity whatever the decode gives, so this holds
+# the plumbing (keyframes, pairs, joining, results moved back); the fixed
+# pair batch's decode bars and SPLIT_SOLVE_BAR hold the split's arithmetic
+PLACED_POSE_BAR = 1e-4
+
+
+def _describe(pl):
+    return None if pl is None else dict(dp=pl.dp, tp=pl.tp,
+                                        backend_slots=list(pl.backend_slots),
+                                        devices=[str(d) for d in pl.devices])
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1.0))
+
+
+class _AttnShapes:
+    """Counts the attention calls of the model's layers by (B, H, N, D)
+    while installed (it calls the counted wrapper)."""
+
+    def __init__(self):
+        self.shapes = {}
+        self.real = layers_mod.flash_attention
+
+    def __call__(self, q, k, v):
+        key = "x".join(map(str, q.shape))
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+        return self.real(q, k, v)
+
+    def __enter__(self):
+        layers_mod.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        layers_mod.flash_attention = self.real
+
+
+def phase_placement_main(n_frames=12, hw=(288, 512)):
+    """The backend split over a (dp, tp) grid of aliases of cuda:0 at ViT-L
+    width: shared as dp 2 x tp 2 over four aliases (serialized), overlap as
+    the tracker on slot 0 and dp 2 x tp 1 on slots 1-2 (threaded), each held
+    against the unplaced serialized run of the same frames."""
+    n_dev = torch.cuda.device_count()
+    emit("placement_devices", count=n_dev, overlap=_describe(mesh.default_placement("overlap")),
+         shared=_describe(mesh.default_placement("shared")))
+    h, w = hw
+    model = mast3r.init_model(mast3r.MASt3RConfig(), seed=0, device=DEV)
+    model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
+    model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
+    frames = smooth_random_frames(1, h, w, seed=3) * n_frames
+    shared = mesh.make_placement(2, 2, [DEV] * 4)
+    overlap = mesh.make_placement(2, 1, [DEV] * 3, first_slot=1)
+
+    # one fixed pair batch: the split decode vs the unsplit one and the f32 one
+    imgs = torch.from_numpy(np.stack(smooth_random_frames(2, h, w, seed=5)) * 2.0 - 1.0).float().to(DEV)
+    feat, pos = mast3r.encode_image(model, imgs)
+    fi, fj, pp = feat, feat.flip(0), pos
+    t0 = time.perf_counter()
+    reps = mesh.backend_replicas(model, shared)
+    torch.cuda.synchronize()
+    replica_s = time.perf_counter() - t0
+    with torch.device(DEV):
+        m32 = mast3r.MASt3R(dataclasses.replace(model.cfg, dtype=torch.float32)).eval()
+    m32.load_state_dict(model.state_dict())
+    m32.cast_transformer_()
+    with _AttnShapes() as shapes:
+        S = decode_symmetric_split(reps, shared, fi, pp, fj, pp, hw)
+    U = decode_symmetric_batch(model, fi, pp, fj, pp, hw)
+    F = decode_symmetric_batch(m32, fi, pp, fj, pp, hw)
+    torch.cuda.synchronize()
+    dec = {k: dict(split_vs_bf16=_rel(a, b), split_vs_f32=_rel(a, c), bf16_vs_f32=_rel(b, c))
+           for k, a, b, c in zip(("pts3d", "conf", "desc", "desc_conf"), S, U, F)}
+    emit("placement_decode", replica_build_s=round(replica_s, 3), pairs=2, grid=[2, 2], errors=dec,
+         attention_shapes=shapes.shapes, bar=SPLIT_DECODE_BAR, f32_ratio=SPLIT_DECODE_F32_RATIO)
+    for k, e in dec.items():
+        if not (e["split_vs_bf16"] <= SPLIT_DECODE_BAR
+                and e["split_vs_f32"] <= SPLIT_DECODE_F32_RATIO * max(e["bf16_vs_f32"], 1e-3)):
+            raise AssertionError(f"split decode off the unsplit one on {k}: {e}")
+    cfg = model.cfg
+    shard = lambda b: f"{b}x{cfg.dec_num_heads // 2}x{(h // 16) * (w // 16)}x{cfg.dec_embed_dim // cfg.dec_num_heads}"  # noqa: E731
+    assert shapes.shapes.get(shard(2), 0) > 0, shapes.shapes  # ViT-L: 2x6x576x64
+    del reps, m32, S, U, F
+
+    # the runs: unplaced serialized, shared serialized, overlap threaded
+    runs = {}
+    with _AttnShapes() as shapes:
+        runs["unplaced"] = _backend_run(model, frames, True, 3, phase="placement_unplaced")
+        base = dict(shapes.shapes)
+        unplaced = dict(base)
+        runs["shared"] = _backend_run(model, frames, True, 3, placement=shared, phase="placement_shared")
+        placed = {k: v - base.get(k, 0) for k, v in shapes.shapes.items() if v > base.get(k, 0)}
+        base = dict(shapes.shapes)
+        runs["overlap"] = _backend_run(model, frames, False, 3, placement=overlap, phase="placement_overlap")
+        placed_ov = {k: v - base.get(k, 0) for k, v in shapes.shapes.items() if v > base.get(k, 0)}
+    ref = np.asarray(runs["unplaced"]["poses"])
+    diffs = {}
+    for name in ("shared", "overlap"):
+        r = runs[name]
+        assert r["pair_list"] == runs["unplaced"]["pair_list"], (name, r["pair_list"])
+        diffs[name] = float(np.abs(np.asarray(r["poses"]) - ref).max())
+
+    # one window solve on identical edges, split vs unsplit (poses perturbed
+    # off the identical frames' identity, so that the solve iterates)
+    slam = SLAM(_backend_cfg(), model, hw, use_backend=True, single_thread=True, placement=shared)
+    for i, img in enumerate(frames[:8]):
+        slam.grab_rgb(img, timestamp=float(i), odom_pose=_odom(i))
+    be = slam.backend
+    uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = be._build_window(slam.store, None)
+    noise = torch.from_numpy(np.random.default_rng(4).normal(size=(T_win.shape[0], 7)) * 0.01).float()
+    noise[:1] = 0.0
+    T0 = lie.sim3_retr(T_win, noise.to(DEV))
+    solved, iters = {}, {}
+    for name, pl in (("split", shared), ("unsplit", None)):
+        st = {}
+        l0 = ba_reduce_kernel.ray_edge_systems.launches
+        solved[name] = global_opt.solve_gn_rays(be.cfg, be.cfg.pin, T0, X_win, C_win, edges_win, odom_win, sb,
+                                                stats=st, n_active=2 * len(be._pairs), placement=pl)
+        iters[name] = (st["iters"], ba_reduce_kernel.ray_edge_systems.launches - l0)
+    slam.terminate()
+    solve_diff = float((solved["split"] - solved["unsplit"]).abs().max())
+    E = int(edges_win.ii.shape[0])
+    out = dict(pose_max_abs_diff=diffs, pose_bar=PLACED_POSE_BAR, solve_max_abs_diff=solve_diff,
+               solve_bar=SPLIT_SOLVE_BAR, solve_rows=E, solve_parts=len(mesh.edge_parts(E, shared)),
+               solve_iters_launches=iters, attention_shapes_unplaced=unplaced, attention_shapes_shared=placed, attention_shapes_overlap=placed_ov,
+               frame_ms={k: r["median_frame_ms_after_first"] for k, r in runs.items()},
+               task_ms={k: r["decode_match_ms"] for k, r in runs.items() if r["decode_match_ms"]},
+               solve_ms={k: r["solve_ms"] for k, r in runs.items() if r["solve_ms"]},
+               max_memory_allocated={k: r["max_memory_allocated"] for k, r in runs.items()},
+               launches={k: r["launches"] for k, r in runs.items()},
+               note="aliases of one card: every split runs at its shapes, no multi-card speed")
+    emit("placement_main", **out)
+    assert all(d <= PLACED_POSE_BAR for d in diffs.values()), diffs
+    assert solve_diff <= SPLIT_SOLVE_BAR, solve_diff
+    assert iters["split"][1] == iters["split"][0] * out["solve_parts"] and out["solve_parts"] == 4
+    # B = 1: the consecutive pair's missing direction on rank 0; B = 4: the
+    # three extra pairs padded to four, two a rank, both directions; each
+    # shape is one of ATTN_SHAPES, held against the plain version there
+    assert placed.get(shard(1), 0) > 0 and placed.get(shard(4), 0) > 0, placed
+    whole = f"4x{cfg.dec_num_heads}x{(h // 16) * (w // 16)}x{cfg.dec_embed_dim // cfg.dec_num_heads}"
+    assert placed_ov.get(whole, 0) > 0, placed_ov  # ViT-L: 4x12x576x64
+    held = {f"{B}x{H}x{Nq}x{D}" for B, H, Nq, Nk, D, dt in ATTN_SHAPES if Nq == Nk and dt == torch.bfloat16}
+    assert set(unplaced) | set(placed) | set(placed_ov) <= held, (unplaced, placed, placed_ov)
+
+    # the per-device shared-memory attribute of the bf16 attention kernel
+    if n_dev >= 2:
+        d1 = torch.device("cuda", 1)
+        q, k, v = kernel_cases.attention_case(1, 6, 576, 576, 64, torch.bfloat16, 7, d1)
+        got = attention_kernel.flash_attention(q, k, v)
+        torch.cuda.synchronize(d1)
+        want = attention_kernel.flash_attention_plain(q, k, v)
+        err = float((got.float() - want.float()).abs().max())
+        emit("placement_second_card", device=str(d1), max_abs_err=err)
+        assert err <= ATTN_BAR[torch.bfloat16] * max(float(want.float().abs().max()), 1.0)
+    else:
+        print("placement_second_card: not run: one card; the bf16 attention attribute is per device "
+              "and only a second card shows it", flush=True)
+    torch.cuda.empty_cache()
+    return runs, out
 
 
 # ---------------------------------------------------------------------------
@@ -1564,6 +1780,7 @@ def main():
     phase_calib_tiny()
     phase_vio_tiny()
     ser, thr = phase_backend_main()
+    placed, _ = phase_placement_main()
     ds = phase_dataset_main()
     reloc = phase_reloc_main()
     vio = phase_vio_main()
@@ -1578,6 +1795,8 @@ def main():
     at = attn[0]  # the encoder at 768 tokens: (1, 16, 768, 64) bf16
     per_path = lambda name: {"main": main_launches[name],  # noqa: E731
                              "backend_main": [ser["launches"][name], thr["launches"][name]],
+                             "placement_main": [placed["shared"]["launches"][name],
+                                                placed["overlap"]["launches"][name]],
                              "dataset_main": ds["launches"][name],
                              "reloc_main": reloc["launches"][name],
                              "vio_main": vio["launches"][name],

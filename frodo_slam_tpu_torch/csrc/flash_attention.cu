@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBQ = 64;             // queries per CTA
@@ -513,18 +515,21 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
+EncodeTiledFn lookup_encode_tiled() {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult status;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+  cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+  cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
 #endif
-    if (status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+  return status == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+}
+
+// the driver's entry point is one per process; looked up once, by whichever
+// thread comes first (a function-local static is initialised thread-safely)
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = lookup_encode_tiled();
   return fn;
 }
 
@@ -553,12 +558,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   if (!err) err = encode_map(&mv, v, D, Nk, H, B, sv);
   if (err) return err;
   constexpr int smem = Layout<NH, S>::kBytes;
-  static bool attr_set = false;  // once per instantiation
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<NH, S>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // above the 48 KB default: the attribute belongs to the current device, so
+  // it is set once per device (one bit each), not once per process; the
+  // tracker's and the backend's threads may launch on two cards at once
+  static std::atomic<uint64_t> attr_set{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (!(attr_set.load() & bit)) {
+    e = cudaFuncSetAttribute(flash_fwd_wgmma<NH, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set.fetch_or(bit);
   }
   const dim3 grid((Nq + kBQ - 1) / kBQ, B * H);
   flash_fwd_wgmma<NH, S><<<grid, kThreads, smem, stream>>>(

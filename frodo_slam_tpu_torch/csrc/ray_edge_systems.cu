@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kConsumers = 256;              // 8 consumer warps
@@ -394,16 +396,17 @@ ray_edge_kernel(const T* __restrict__ scal,    // (E, 12) [sR row-major | t]
 
 template <typename T, bool kBulk>
 cudaError_t prepare() {
-  // dynamic shared memory above 48 KB: set once per device
-  static uint64_t done = 0;
+  // dynamic shared memory above 48 KB: set once per device (one bit each;
+  // two threads may launch on two cards at once)
+  static std::atomic<uint64_t> done{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const uint64_t bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
+  if (done.load() & bit) return cudaSuccess;
   err = cudaFuncSetAttribute(ray_edge_kernel<T, kBulk>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err == cudaSuccess) done |= bit;
+  if (err == cudaSuccess) done.fetch_or(bit);
   return err;
 }
 

@@ -21,9 +21,14 @@ retrieval assets a random head and codebook, recorded as
 ``--viz-port`` during the run; the run honours its pause and step controls
 once per frame, and the viewer stops with the run.
 
+``tpu.placement`` (``overlap`` by default, or ``shared``) places the
+backend on the other cards when there are several
+(:func:`~.parallel.mesh.default_placement`, as the JAX runner's
+``default_mesh``); on one card, or with ``run(args, device="cpu")``, there is
+no placement.
+
 Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
-effect (the port's window solve is always f64); ``tpu.placement`` is
-ignored on one card (ROADMAP.md §1 "Multi-GPU placement").
+effect (the port's window solve is always f64).
 """
 
 from __future__ import annotations
@@ -49,12 +54,11 @@ def run(args, device=None) -> dict:
     from .data import datasets
     from .data.prefetch import PrefetchLoader
     from .models import mast3r
+    from .parallel import mesh
     from .slam.system import SLAM
     from .utils import evaluate
 
     cfg = make_config(args.config)
-    log.info('tpu.placement %r ignored: the port runs on one card (ROADMAP.md §1 "Multi-GPU placement")',
-             cfg["tpu"].get("placement"))
     calib_yaml = None
     if args.calib:
         with open(args.calib) as f:
@@ -80,10 +84,14 @@ def run(args, device=None) -> dict:
     retrieval = None if args.no_retrieval else loader.load_retriever(model_cfg, device=device)
     calib = dataset.camera_intrinsics.K_frame if (cfg["use_calib"] and dataset.has_calib()) else None
 
+    # the backend on the other cards: the reference's second-GPU backend
+    # (run_vio.py:111-114), split over a (dp, tp) grid
+    placement = mesh.default_placement(str(cfg["tpu"].get("placement", "overlap")),
+                                       mesh.visible_devices(device))
     slam = SLAM(cfg, model, (h, w), calib=calib, retrieval_db=retrieval, use_backend=True,
                 use_reloc=retrieval is not None, single_thread=bool(cfg["single_thread"]), device=device,
                 # the reference saves keyframe PNGs with every --save-as run (main.py:332)
-                keep_keyframe_images=bool(args.save_as))
+                keep_keyframe_images=bool(args.save_as), placement=placement)
 
     viewer = None
     if getattr(args, "viz", False):

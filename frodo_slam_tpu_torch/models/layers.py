@@ -101,19 +101,21 @@ def _sdpa(q, k, v):
 
 
 class Attention(nn.Module):
-    """Self-attention with RoPE2D (blocks.py:92-135)."""
+    """Self-attention with RoPE2D (blocks.py:92-135). ``head_dim`` is the
+    model's (dim // num_heads) unless given: a tensor-parallel shard holds
+    fewer heads of the same width."""
 
-    def __init__(self, dim: int, num_heads: int, rope_base: float | None):
+    def __init__(self, dim: int, num_heads: int, rope_base: float | None, head_dim: int | None = None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads if head_dim is None else head_dim
         self.rope_base = rope_base
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = nn.Linear(dim, 3 * num_heads * self.head_dim)
+        self.proj = nn.Linear(num_heads * self.head_dim, dim)
 
     def forward(self, x, xpos):
-        b, n, c = x.shape
-        hd = c // self.num_heads
-        qkv = linear(self.qkv, x).reshape(b, n, 3, self.num_heads, hd)
+        b, n, _ = x.shape
+        qkv = linear(self.qkv, x).reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if self.rope_base is not None:
             q = apply_rope2d(q, xpos, self.rope_base)
@@ -122,20 +124,23 @@ class Attention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Cross-attention with RoPE2D (blocks.py:158-215)."""
+    """Cross-attention with RoPE2D (blocks.py:158-215); ``head_dim`` as in
+    :class:`Attention`."""
 
-    def __init__(self, dim: int, num_heads: int, rope_base: float | None):
+    def __init__(self, dim: int, num_heads: int, rope_base: float | None, head_dim: int | None = None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads if head_dim is None else head_dim
         self.rope_base = rope_base
-        self.projq = nn.Linear(dim, dim)
-        self.projk = nn.Linear(dim, dim)
-        self.projv = nn.Linear(dim, dim)
-        self.proj = nn.Linear(dim, dim)
+        inner = num_heads * self.head_dim
+        self.projq = nn.Linear(dim, inner)
+        self.projk = nn.Linear(dim, inner)
+        self.projv = nn.Linear(dim, inner)
+        self.proj = nn.Linear(inner, dim)
 
     def forward(self, query, key, value, qpos, kpos):
-        b, nq, c = query.shape
-        hd = c // self.num_heads
+        b, nq, _ = query.shape
+        hd = self.head_dim
         q = linear(self.projq, query).reshape(b, nq, self.num_heads, hd).transpose(1, 2)
         k = linear(self.projk, key).reshape(b, -1, self.num_heads, hd).transpose(1, 2)
         v = linear(self.projv, value).reshape(b, -1, self.num_heads, hd).transpose(1, 2)
@@ -201,3 +206,112 @@ class PatchEmbed(nn.Module):
                                 torch.arange(gw, device=img.device), indexing="ij")
         pos = torch.stack([yy, xx], dim=-1).reshape(1, gh * gw, 2).expand(b, gh * gw, 2)
         return tokens, pos
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (the JAX package's tp layout, parallel/mesh.py:60-80):
+# q/k/v and fc1 split by output features, the output projections and fc2 by
+# input features, everything else whole on the first device
+# ---------------------------------------------------------------------------
+
+def copy_param(t: torch.Tensor, device) -> nn.Parameter:
+    """A contiguous copy of ``t`` on ``device`` (never a view of it)."""
+    return nn.Parameter(t.detach().to(device, copy=True, memory_format=torch.contiguous_format),
+                        requires_grad=False)
+
+
+def _shard_linear(lin: nn.Linear, src: nn.Linear, device, rows=None, cols=None):
+    """Fill ``lin`` (built on the meta device) with the output features
+    ``rows`` or the input features ``cols`` of ``src``, on ``device``; a
+    shard of input features has no bias (:class:`TensorParallel` adds it)."""
+    if rows is not None:
+        lin.weight = copy_param(src.weight[rows], device)
+        lin.bias = copy_param(src.bias[rows], device)
+    else:
+        lin.weight = copy_param(src.weight[:, cols], device)
+        lin.bias = None
+    return lin
+
+
+class TensorParallel(nn.Module):
+    """One layer (:class:`Attention`, :class:`CrossAttention` or
+    :class:`Mlp`) split over ``devices``: shard r, on ``devices[r]``, holds
+    its share of the heads or hidden features and its rows of the output
+    projection, without bias. The forward hands each shard its inputs on its
+    device, moves the partial outputs to the first device, adds them there
+    in shard order in f32 and adds the bias once after the sum, so the
+    result does not depend on which shard finishes first."""
+
+    def __init__(self, shards, bias: torch.Tensor, devices):
+        super().__init__()
+        self.shards = nn.ModuleList(shards)
+        self.bias = copy_param(bias, devices[0])
+        self.devices = tuple(devices)
+
+    def forward(self, *args):
+        dtype = args[0].dtype
+        parts = [s(*(a.to(d) for a in args)) for s, d in zip(self.shards, self.devices)]
+        acc = parts[0].float()
+        for p in parts[1:]:
+            acc = acc + p.to(self.devices[0]).float()
+        return (acc + self.bias.to(dtype).float()).to(dtype)
+
+
+def _tp(n: int, devices, what: str) -> int:
+    tp = len(devices)
+    if n % tp:
+        raise ValueError(f"tensor parallel: {n} {what} do not split over {tp} devices")
+    return n // tp
+
+
+def split_attention(attn: Attention, devices) -> TensorParallel:
+    """Shard r takes heads [r H/tp, (r+1) H/tp) of each of q, k and v (a
+    contiguous cut of the 3 * dim rows of ``qkv`` would hand rank 0 all of q
+    and half of k) and the matching input columns of ``proj``."""
+    hs = _tp(attn.num_heads, devices, "heads")
+    hd, dim = attn.head_dim, attn.proj.out_features
+    inner = attn.num_heads * hd
+    shards = []
+    for r, d in enumerate(devices):
+        cut = slice(r * hs * hd, (r + 1) * hs * hd)
+        rows = torch.cat([torch.arange(inner, device=attn.qkv.weight.device)[cut] + i * inner
+                          for i in range(3)])
+        with torch.device("meta"):
+            s = Attention(dim, hs, attn.rope_base, head_dim=hd)
+        _shard_linear(s.qkv, attn.qkv, d, rows=rows)
+        _shard_linear(s.proj, attn.proj, d, cols=cut)
+        shards.append(s)
+    return TensorParallel(shards, attn.proj.bias, devices)
+
+
+def split_cross_attention(attn: CrossAttention, devices) -> TensorParallel:
+    """Shard r takes heads [r H/tp, (r+1) H/tp) of q, k and v and the
+    matching input columns of ``proj``."""
+    hs = _tp(attn.num_heads, devices, "heads")
+    hd, dim = attn.head_dim, attn.proj.out_features
+    shards = []
+    for r, d in enumerate(devices):
+        cut = slice(r * hs * hd, (r + 1) * hs * hd)
+        with torch.device("meta"):
+            s = CrossAttention(dim, hs, attn.rope_base, head_dim=hd)
+        for name in ("projq", "projk", "projv"):
+            _shard_linear(getattr(s, name), getattr(attn, name), d, rows=cut)
+        _shard_linear(s.proj, attn.proj, d, cols=cut)
+        shards.append(s)
+    return TensorParallel(shards, attn.proj.bias, devices)
+
+
+def split_mlp(mlp: Mlp, devices) -> TensorParallel:
+    """Shard r takes hidden features [r F/tp, (r+1) F/tp): those rows of
+    ``fc1`` and those input columns of ``fc2``."""
+    hidden = mlp.fc1.out_features
+    f = _tp(hidden, devices, "hidden features")
+    shards = []
+    for r, d in enumerate(devices):
+        cut = slice(r * f, (r + 1) * f)
+        with torch.device("meta"):
+            s = Mlp(mlp.fc1.in_features, f, mlp.fc2.out_features)
+        _shard_linear(s.fc1, mlp.fc1, d, rows=cut)
+        _shard_linear(s.fc2, mlp.fc2, d, cols=cut)
+        shards.append(s)
+    return TensorParallel(shards, mlp.fc2.bias, devices)

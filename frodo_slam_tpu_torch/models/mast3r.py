@@ -26,6 +26,7 @@ weights cast once (:meth:`MASt3R.cast_transformer_`); heads run in
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Tuple
 
@@ -34,7 +35,8 @@ import torch.nn as nn
 
 from ..utils.device import resolve_device
 from . import dpt as dpt_mod
-from .layers import Block, DecoderBlock, LayerNorm, Mlp, PatchEmbed, layernorm, linear, xavier_
+from .layers import (Block, DecoderBlock, LayerNorm, Mlp, PatchEmbed, layernorm, linear, split_attention,
+                     split_cross_attention, split_mlp, xavier_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +158,56 @@ class MASt3R(nn.Module):
         for name in self._TRANSFORMER:
             getattr(self, name).to(dtype)
         return self
+
+
+def _copy_to(mod: nn.Module, device) -> nn.Module:
+    """A copy of ``mod`` on ``device`` that shares no storage with it."""
+    return copy.deepcopy(mod).to(device)
+
+
+def _rebuild(mod: nn.Module, devices, split: dict) -> nn.Module:
+    """A new module of ``mod``'s class whose children named in ``split`` are
+    ``split[name](child, devices)`` and whose other children are copies on
+    ``devices[0]``."""
+    out = type(mod).__new__(type(mod))
+    nn.Module.__init__(out)
+    out.training = mod.training
+    for name, child in mod.named_children():
+        setattr(out, name, split[name](child, devices) if name in split else _copy_to(child, devices[0]))
+    return out
+
+
+class BackendReplica(nn.Module):
+    """The decoder and both heads of ``model`` for one dp rank of the
+    backend, on ``devices`` (the rank's tp devices): the layers the JAX
+    package splits over its ``tp`` axis (parallel/mesh.py ``_pspec_for_path``:
+    attention and cross-attention heads, the MLPs' hidden features, the
+    heads' cat-MLP) split over ``devices`` by :class:`~.layers.TensorParallel`,
+    the rest copied whole onto ``devices[0]``. No encoder: the backend
+    decodes stored features. It has the attributes :func:`decode` and
+    :func:`decode_and_heads` read, so it takes ``model``'s place there;
+    inputs go on :attr:`device`, outputs come back there. It shares no
+    parameter storage with ``model``."""
+
+    def __init__(self, model: MASt3R, devices):
+        super().__init__()
+        self.cfg = model.cfg
+        self.devices = tuple(devices)
+        first = self.devices[0]
+        block_split = {"attn": split_attention, "cross_attn": split_cross_attention, "mlp": split_mlp}
+        self.decoder_embed = _copy_to(model.decoder_embed, first)
+        for name in ("dec_blocks", "dec_blocks2"):
+            setattr(self, name, nn.ModuleList(_rebuild(b, self.devices, block_split)
+                                              for b in getattr(model, name)))
+        self.dec_norm = _copy_to(model.dec_norm, first)
+        for name in ("downstream_head1", "downstream_head2"):
+            setattr(self, name, _rebuild(getattr(model, name), self.devices,
+                                         {"head_local_features": split_mlp}))
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
 
 
 def init_model(cfg: MASt3RConfig, seed: int = 0, device=None) -> MASt3R:

@@ -15,10 +15,14 @@ device="cpu")``. ``--visualize`` serves the live map viewer
 its pause and step controls once per frame, and the viewer stops with the
 run.
 
+``tpu.placement`` places the backend on the other cards when there are
+several (:func:`~.parallel.mesh.default_placement`); ``--use_multiple_gpu``
+sets it to ``overlap`` (the reference's backend on a second GPU,
+run_vio.py:111-114). On one card, or with ``device="cpu"``, there is no
+placement.
+
 Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
-effect (the port's window solve is always f64); ``--use_multiple_gpu`` and
-``tpu.placement`` are logged and ignored on one card (ROADMAP.md §1
-"Multi-GPU placement").
+effect (the port's window solve is always f64).
 """
 
 from __future__ import annotations
@@ -53,23 +57,26 @@ def _load_calib_K(args, cfg):
 
 
 def _setup(args, device):
-    """Config, calibration and model, as both entry points load them."""
+    """Config, calibration, model and placement, as both entry points load
+    them."""
     from . import loader
     from .config import make_config
     from .models import mast3r
+    from .parallel import mesh
 
     cfg = make_config(args.config)
-    log.info('placement %r (--use_multiple_gpu %s) ignored: the port runs on one card '
-             '(ROADMAP.md §1 "Multi-GPU placement")', cfg["tpu"].get("placement"),
-             bool(getattr(args, "use_multiple_gpu", False)))
+    if getattr(args, "use_multiple_gpu", False):
+        cfg["tpu"]["placement"] = "overlap"  # the reference's --use_multiple_gpu
     K_frame = _load_calib_K(args, cfg)
     model_cfg = loader.apply_model_knobs(mast3r.MASt3RConfig(), cfg)
     model, model_cfg = loader.load_mast3r(args.weights, cfg=model_cfg, device=device)
     retrieval = None if args.no_retrieval else loader.load_retriever(model_cfg, device=device)
-    return cfg, K_frame, model, retrieval
+    placement = mesh.default_placement(str(cfg["tpu"].get("placement", "overlap")),
+                                       mesh.visible_devices(device))
+    return cfg, K_frame, model, retrieval, placement
 
 
-def _make_slam(cfg, K_frame, model, retrieval, img, single_thread, local_opt_mode, device):
+def _make_slam(cfg, K_frame, model, retrieval, placement, img, single_thread, local_opt_mode, device):
     """The SLAM at the frame's network shape (the long side resized to 512)."""
     from .data import image as image_mod
     from .slam.system import SLAM
@@ -78,7 +85,7 @@ def _make_slam(cfg, K_frame, model, retrieval, img, single_thread, local_opt_mod
     h, w = int(shaped["true_shape"][0][0]), int(shaped["true_shape"][0][1])
     return SLAM(cfg, model, (h, w), calib=K_frame, retrieval_db=retrieval, use_backend=True,
                 use_reloc=retrieval is not None, single_thread=single_thread,
-                local_opt_mode=local_opt_mode, device=device)
+                local_opt_mode=local_opt_mode, device=device, placement=placement)
 
 
 def _start_viewer(slam, args):
@@ -105,7 +112,7 @@ def run_dataset(args, device=None):
     terminated ``SLAM`` (None for an empty session)."""
     from .slam.odometry import OdometryData
 
-    cfg, K_frame, model, retrieval = _setup(args, device)
+    cfg, K_frame, model, retrieval, placement = _setup(args, device)
     data = OdometryData(args.dataset, wall_clock=args.wall_clock, use_odometry=args.use_odometry)
     slam = viewer = None
     i = 0
@@ -120,8 +127,8 @@ def run_dataset(args, device=None):
                 continue
             img = np.asarray(frame_img[:, :, ::-1], np.float32) / 255.0  # BGR -> RGB
             if slam is None:
-                slam = _make_slam(cfg, K_frame, model, retrieval, img, bool(cfg["single_thread"]),
-                                  args.use_odometry, device)
+                slam = _make_slam(cfg, K_frame, model, retrieval, placement, img,
+                                  bool(cfg["single_thread"]), args.use_odometry, device)
                 viewer = _start_viewer(slam, args)
             if viewer is not None:
                 viewer.wait_if_paused()  # the browser's pause/step control
@@ -143,7 +150,7 @@ def run_robot(args, device=None):  # pragma: no cover - hardware
     backend threaded, the VIO mode on."""
     from .slam.odometry import StraightOrSpinOdometry
 
-    cfg, K_frame, model, retrieval = _setup(args, device)
+    cfg, K_frame, model, retrieval, placement = _setup(args, device)
     odo = StraightOrSpinOdometry(robot_type=args.robot_type)
     odo.start()
     slam = viewer = None
@@ -155,7 +162,7 @@ def run_robot(args, device=None):  # pragma: no cover - hardware
                 continue
             img = np.asarray(frame_img[:, :, ::-1], np.float32) / 255.0
             if slam is None:
-                slam = _make_slam(cfg, K_frame, model, retrieval, img, False, True, device)
+                slam = _make_slam(cfg, K_frame, model, retrieval, placement, img, False, True, device)
                 viewer = _start_viewer(slam, args)
             _grab(slam, cfg, img, ts, odom_pose if args.use_odometry else None)
     finally:
@@ -180,7 +187,8 @@ def build_parser():
     p.add_argument("--every_n_frames", type=int, default=4)  # run_vio.py:218
     p.add_argument("--no-retrieval", action="store_true")
     p.add_argument("--use_multiple_gpu", action="store_true",
-                   help='accepted and ignored on one card (ROADMAP.md §1 "Multi-GPU placement")')
+                   help="tpu.placement=overlap: the tracker keeps the first card, the backend "
+                        "runs on the others (no effect on one card)")
     return p
 
 

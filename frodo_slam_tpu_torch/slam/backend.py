@@ -12,6 +12,15 @@ package donates and rebuilds the buffers. The host keeps small mirrors
 (python lists of logical (ii, jj) keyframe pairs) for gating, eviction and
 window membership, so no decision there waits on the device except the gate
 fractions of a non-consecutive pair.
+
+Under a :class:`~..parallel.mesh.Placement` the graph lives on the
+placement's solve device: its edge and odometry rows, the window tensors and
+the solve (split over the backend's devices, see :mod:`.global_opt`). The
+pair decode runs on per-rank replicas of the decoder and heads built from
+the model at construction (:func:`~..parallel.mesh.backend_replicas`), the
+pair batch split over the ranks. Every read of the keyframe store gathers on
+the store's device and copies the rows to the graph's (:meth:`BackendGraph._gather`),
+and the write-back returns the poses to the store's device.
 """
 
 from __future__ import annotations
@@ -24,11 +33,12 @@ import torch
 from ..ops import matching
 from ..ops.geometry import constrain_points_to_ray
 from ..utils.log import get_logger
+from ..parallel.mesh import backend_replicas
 from . import frame as frame_mod
 from .frame import KeyframeStore
 from .global_opt import (BAConfig, Edges, OdomEdges, empty_edges, empty_odom_edges, solve_gn_calib,
                          solve_gn_rays)
-from .inference import decode_asymmetric, match_symmetric
+from .inference import decode_asymmetric, match_symmetric_split
 
 log = get_logger("backend")
 
@@ -118,13 +128,23 @@ def _shift_pair_rows(edges: Edges, pair_idx: int) -> Edges:
 class BackendGraph:
     """Host-side factor graph over a :class:`KeyframeStore`.
 
-    ``model`` is the MASt3R module; its parameters' device is the graph's."""
+    ``model`` is the MASt3R module. ``self.replicas`` decode the pairs, one
+    a dp rank: without a ``placement`` that is ``[model]`` and its
+    parameters' device is the graph's; with one, the graph lives on
+    ``placement.solve_device`` and the replicas are per-rank copies of the
+    model's decoder and heads."""
 
     def __init__(self, model, cfg: BAConfig, match_cfg: tuple, img_hw: Tuple[int, int],
                  max_edges: int = 64, max_odom: int = 64, Q_conf: float = 1.5,
-                 min_match_frac: float = 0.1):
+                 min_match_frac: float = 0.1, placement=None):
         self.model = model
-        self.device = next(model.parameters()).device
+        self.placement = placement
+        if placement is None:
+            self.replicas = [model]
+            self.device = next(model.parameters()).device
+        else:
+            self.replicas = backend_replicas(model, placement)
+            self.device = placement.solve_device
         self.cfg = cfg
         self.match_cfg = match_cfg
         self.img_hw = img_hw
@@ -164,14 +184,18 @@ class BackendGraph:
             self._odom_pairs.append((ii, jj))
         self._n_odom += 1
 
+    def _gather(self, slots, *ts):
+        """Rows ``slots`` of the store tensors ``ts``, gathered on the
+        store's device (one index) and copied to the graph's."""
+        idx = torch.as_tensor(slots, dtype=torch.long, device=ts[0].device)
+        return [t[idx].to(self.device) for t in ts]
+
     def _ingest(self, store: KeyframeStore, slots_i, slots_j, idx_i2j, idx_j2i,
                 valid_match_j, valid_match_i, Qii, Qjj, Qji, Qij):
-        si = torch.as_tensor(slots_i, dtype=torch.long, device=self.device)
-        sj = torch.as_tensor(slots_j, dtype=torch.long, device=self.device)
         return _ingest_pairs(
             self.Q_conf, self.cfg.Q_conf, self.cfg.C_conf,
-            store.X_canon[si], store.C[si], store.N[si],
-            store.X_canon[sj], store.C[sj], store.N[sj],
+            *self._gather(slots_i, store.X_canon, store.C, store.N),
+            *self._gather(slots_j, store.X_canon, store.C, store.N),
             idx_i2j, idx_j2i, valid_match_j, valid_match_i, Qii, Qjj, Qji, Qij)
 
     @torch.no_grad()
@@ -185,12 +209,12 @@ class BackendGraph:
         mmf = self.min_match_frac if min_match_frac is None else min_match_frac
         slots_i = [int(i) % store.capacity for i in ii]
         slots_j = [int(j) % store.capacity for j in jj]
-        feat_i = store.feat[torch.as_tensor(slots_i, device=self.device)]
-        feat_j = store.feat[torch.as_tensor(slots_j, device=self.device)]
-        pos = store.pos[None].expand(len(ii), *store.pos.shape)
+        feat_i, = self._gather(slots_i, store.feat)
+        feat_j, = self._gather(slots_j, store.feat)
+        pos = store.pos.to(self.device)[None].expand(len(ii), *store.pos.shape)
         (idx_i2j, idx_j2i, valid_match_j, valid_match_i,
-         Qii, Qjj, Qji, Qij) = match_symmetric(self.model, self.match_cfg, feat_i, pos,
-                                               feat_j, pos, self.img_hw)
+         Qii, Qjj, Qji, Qij) = match_symmetric_split(self.replicas, self.placement, self.match_cfg,
+                                                     feat_i, pos, feat_j, pos, self.img_hw)
         (Qj, Qi, valid_j, valid_i, fracs, XiT_r0, w0_r0, XiT_r1, w0_r1) = self._ingest(
             store, slots_i, slots_j, idx_i2j, idx_j2i, valid_match_j, valid_match_i,
             Qii, Qjj, Qji, Qij)
@@ -220,13 +244,13 @@ class BackendGraph:
         keyframe ``j``: decode(j, i) and its match). Only decode(i, j) and
         one match remain. With ``seed_consecutive`` (default on) that match
         is seeded with the inverse of the tracker's match and keeps only
-        genuinely seeded pixels."""
-        idx_j2i, valid_match_i, Qjj, Qij = half
+        genuinely seeded pixels. ``half`` may live on the tracker's device."""
+        idx_j2i, valid_match_i, Qjj, Qij = (t.to(self.device) for t in half)
         slot_i = int(i) % store.capacity
         slot_j = int(j) % store.capacity
-        pos = store.pos[None]
-        res11, res21 = decode_asymmetric(self.model, store.feat[slot_i][None], pos,
-                                         store.feat[slot_j][None], pos, self.img_hw)
+        pos = store.pos.to(self.device)[None]
+        feat, = self._gather([slot_i, slot_j], store.feat)
+        res11, res21 = decode_asymmetric(self.replicas[0], feat[:1], pos, feat[1:], pos, self.img_hw)
         mc = dict(self.match_cfg)
         if bool(mc.get("seed_consecutive", True)):
             idx_seed, seeded = _invert_match(idx_j2i, valid_match_i)
@@ -324,11 +348,9 @@ class BackendGraph:
         pad = bucket - p
         kf_to_win = {k: n for n, k in enumerate(uniq)}
 
-        slots = torch.as_tensor([k % store.capacity for k in uniq]
-                                + [uniq[-1] % store.capacity] * pad, device=self.device)
-        T_win = store.T_WC[slots]
-        X_win = store.X_canon[slots]
-        C_win = store.C[slots] / torch.clamp(store.N[slots], min=1)[:, None, None].to(store.C.dtype)
+        slots = [k % store.capacity for k in uniq] + [uniq[-1] % store.capacity] * pad
+        T_win, X_win, C_win, N_win = self._gather(slots, store.T_WC, store.X_canon, store.C, store.N)
+        C_win = C_win / torch.clamp(N_win, min=1)[:, None, None].to(C_win.dtype)
 
         ebucket = 8
         while ebucket < len(self._pairs):
@@ -364,7 +386,8 @@ class BackendGraph:
         return uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb
 
     def _write_back(self, store: KeyframeStore, uniq, p, T_new) -> KeyframeStore:
-        """Write the free poses back (global_opt.py:285-286), in place."""
+        """Write the free poses back (global_opt.py:285-286), in place, on
+        the store's device."""
         free = uniq[self.cfg.pin: p]
         if free:
             frame_mod.kf_update_T_WCs(store, T_new[self.cfg.pin: p],
@@ -383,7 +406,8 @@ class BackendGraph:
         stats: dict = {}
         # the live rows are the first 2 * len(_pairs): the kernel's sizing hint
         T_new = solve_gn_rays(self.cfg, self.cfg.pin, T_win, X_win, C_win, edges_win,
-                              odom_win, sb, stats=stats, n_active=2 * len(self._pairs))
+                              odom_win, sb, stats=stats, n_active=2 * len(self._pairs),
+                              placement=self.placement)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 
@@ -396,10 +420,11 @@ class BackendGraph:
         if win is None:
             return None
         uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
+        K = K.to(self.device)
         X_win = constrain_points_to_ray(self.img_hw, X_win, K)
         stats: dict = {}
         T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, K,
-                               edges_win, odom_win, sb, stats=stats)
+                               edges_win, odom_win, sb, stats=stats, placement=self.placement)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 

@@ -249,17 +249,19 @@ def kf_update_T_WCs(store: KeyframeStore, T_WCs: torch.Tensor, slots) -> Keyfram
     """Write backend-optimized poses into their slots, in place
     (SharedKeyframes.update_T_WCs, frame.py:568-575)."""
     slots = torch.as_tensor(slots, dtype=torch.long, device=store.T_WC.device)
-    store.T_WC[slots] = T_WCs.to(store.T_WC.dtype)
+    store.T_WC[slots] = T_WCs.to(store.T_WC.device, store.T_WC.dtype)
     return store
 
 
-def kf_snapshot(store: KeyframeStore) -> KeyframeStore:
-    """A copy of the store that later in-place writes to ``store`` do not
-    reach: what the JAX package gets for free from immutable arrays, for a
-    backend task that reads the store while the frontend writes it."""
+def kf_snapshot(store: KeyframeStore, device) -> KeyframeStore:
+    """A copy of the store on ``device`` that later in-place writes to
+    ``store`` do not reach: what the JAX package gets for free from immutable
+    arrays, for a backend task that reads the store while the frontend
+    writes it (a backend on its own card copies the store straight there)."""
     return dataclasses.replace(
-        store, **{f.name: getattr(store, f.name).clone()
-                  for f in dataclasses.fields(store) if isinstance(getattr(store, f.name), torch.Tensor)})
+        store, **{f.name: t.to(device, copy=True)
+                  for f in dataclasses.fields(store)
+                  if isinstance(t := getattr(store, f.name), torch.Tensor)})
 
 
 def kf_get_frame(store: KeyframeStore, slot: int) -> Frame:

@@ -24,7 +24,15 @@ solve, and the JAX package under x64).
 
 The GN loop stops early on the host: each iteration fetches one bool
 (``|dx| >= delta_norm``), so a solve makes exactly one edge-kernel launch per
-iteration it runs, and its result is the JAX ``lax.while_loop``'s.
+iteration it runs (one per edge part under a placement), and its result is
+the JAX ``lax.while_loop``'s.
+
+Under a :class:`~..parallel.mesh.Placement` the edge rows are split over the
+backend's devices (:func:`~..parallel.mesh.edge_parts`, the JAX package's
+``_build_edge_systems``): each part's rows and the window's pointmaps are
+copied to its device once a solve, only the poses (P x 8) move each
+iteration, and the (E, 7, 7) / (E, 7) systems come back to the solve device
+in row order, where the assembly and the Cholesky run once.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 from ..ops import lie
 from ..ops.ba_reduce_kernel import ray_edge_systems
 from ..ops.robust import huber
+from ..parallel.mesh import edge_parts
 
 
 class BAConfig(NamedTuple):
@@ -448,6 +457,28 @@ def _scatter_block(H, g, blocks, gvecs, ii_opt, jj_opt, p_opt):
     return H, g
 
 
+def _edge_systems(placement, E: int, device, make):
+    """``edge_systems(T) -> (A (E, 7, 7), gj (E, 7))`` on ``device`` from
+    ``make(lo, hi, part_device) -> fn(T)``, which builds the systems of rows
+    [lo, hi) on ``part_device`` (copying its inputs there once). Without a
+    placement there is one part, on ``device``."""
+    parts = [(0, E, device)] if placement is None else edge_parts(E, placement)
+    fns = [(make(lo, hi, d), d) for lo, hi, d in parts]
+    if len(fns) == 1 and parts[0][2] == device:
+        return fns[0][0]
+
+    def systems(T):
+        out = [fn(T.to(d)) for fn, d in fns]
+        return (torch.cat([A.to(device) for A, _ in out]), torch.cat([g.to(device) for _, g in out]))
+
+    return systems
+
+
+def _rows(lo: int, hi: int, d, *ts):
+    """Rows [lo, hi) of each tensor, contiguous on ``d``."""
+    return tuple(t[lo:hi].to(d).contiguous() for t in ts)
+
+
 def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, s_bar,
               edge_systems, stats: Optional[dict] = None):
     """Outer GN loop (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934):
@@ -527,42 +558,64 @@ def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, 
 
 @torch.no_grad()
 def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: OdomEdges,
-                  s_bar, stats: Optional[dict] = None, n_active: Optional[int] = None):
+                  s_bar, stats: Optional[dict] = None, n_active: Optional[int] = None,
+                  placement=None):
     """Global ray-alignment GN with odometry factors and scale priors
     (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934).
 
     T_WC (P, 8) window poses, X (P, HW, 3), C (P, HW, 1), s_bar (P,) scale
     targets (<= 0 disables). f32 edge systems for f32 inputs, an f64 solve
     (the reference's double Eigen solve). ``n_active``: the live edge rows
-    as the host knows them (a sizing hint of the kernel; None: all rows).
-    Returns the updated (P, 8) poses."""
+    (a prefix) as the host knows them, a sizing hint of the kernel (None:
+    all rows). ``placement``: split the edge rows over the backend's devices
+    (each part's kernel sized by its own live rows). Returns the updated
+    (P, 8) poses."""
     XiT, w0 = _edge_cache(cfg, X, C, edges)
-    xs = (edges.ii, edges.jj.to(torch.int32), XiT.contiguous(), w0.contiguous(), X.contiguous(),
-          edges.active)
-    fn = _kernel_ray_fn(cfg, n_active)
-    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, lambda T: fn(T, xs), stats=stats)
+    jj = edges.jj.to(torch.int32)
+
+    def make(lo, hi, d):
+        live = None if n_active is None else max(0, min(n_active, hi) - lo)
+        fn = _kernel_ray_fn(cfg, live)
+        ii_p, jj_p, XiT_p, w0_p, act_p = _rows(lo, hi, d, edges.ii, jj, XiT, w0, edges.active)
+        xs = (ii_p, jj_p, XiT_p, w0_p, X.to(d).contiguous(), act_p)
+        return lambda T: fn(T, xs)
+
+    systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
 
 
 @torch.no_grad()
 def solve_gn_calib(cfg: BAConfig, num_fix: int, img_hw, T_WC, X, C, K, edges: Edges,
-                   odom: OdomEdges, s_bar, stats: Optional[dict] = None):
+                   odom: OdomEdges, s_bar, stats: Optional[dict] = None, placement=None):
     """Calibrated pixel + log-depth global GN (gauss_newton_calib_cuda,
     gn_kernels.cu:2610-2702; caller global_opt.py:288-341) with the same
-    outer loop, odometry rows and scale priors as :func:`solve_gn_rays`.
-    X (P, HW, 3) is already ray-constrained (global_opt.py:298-300); K (3, 3)."""
+    outer loop, odometry rows, scale priors and edge split as
+    :func:`solve_gn_rays`. X (P, HW, 3) is already ray-constrained
+    (global_opt.py:298-300); K (3, 3)."""
     XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
-    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar,
-                     lambda T: _calib_edge_systems(cfg, img_hw, K, T, edges.ii, edges.jj, edges.idx,
-                                                   XiT, w0, XjT), stats=stats)
+
+    def make(lo, hi, d):
+        rows = _rows(lo, hi, d, edges.ii, edges.jj, edges.idx, XiT, w0, XjT)
+        Kd = K.to(d)
+        return lambda T: _calib_edge_systems(cfg, img_hw, Kd, T, *rows)
+
+    systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
 
 
 @torch.no_grad()
 def solve_gn_points(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: OdomEdges, s_bar,
-                    stats: Optional[dict] = None):
+                    stats: Optional[dict] = None, placement=None):
     """3-D point-alignment global GN (gauss_newton_points_cuda,
     gn_kernels.cu:2206-2293; exported at gn.cpp:152-160, driven by the
     disabled local mapper local_mapping.py:190-206) with the same outer
-    loop, odometry rows and scale priors as :func:`solve_gn_rays`."""
+    loop, odometry rows, scale priors and edge split as
+    :func:`solve_gn_rays`."""
     XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
-    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar,
-                     lambda T: _point_edge_systems(cfg, T, edges.ii, edges.jj, XiT, w0, XjT), stats=stats)
+
+    def make(lo, hi, d):
+        rows = _rows(lo, hi, d, edges.ii, edges.jj, XiT, w0, XjT)
+        return lambda T: _point_edge_systems(cfg, T, *rows)
+
+    systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)

@@ -14,6 +14,7 @@ import torch
 
 from ..models import mast3r
 from ..ops import matching
+from ..parallel.mesh import gather_batch, split_batch
 
 
 class AsymOut(NamedTuple):
@@ -109,6 +110,40 @@ def match_symmetric(model, match_cfg, feat_i, pos_i, feat_j, pos_j, img_hw):
         idx_1_to_2[:n], idx_1_to_2[n:], valid_match_2[:n], valid_match_2[n:],
         rs(Q[0]), rs(Q[2]), rs(Q[1]), rs(Q[3]),
     )
+
+
+def _over_ranks(fn, replicas, placement, inputs, dim=0):
+    """``fn(replica, *chunk)`` on every dp rank's share of the pair batch
+    ``inputs`` (padded to a multiple of dp with copies of the last pair, as
+    the JAX backend pads, backend.py:232-246), each rank on its own devices;
+    every output joined on the solve device in pair order along ``dim``,
+    the padded pairs dropped. Without a placement there is one rank, the
+    inputs' device, and ``replicas`` is ``[model]``."""
+    n = inputs[0].shape[0]
+    if placement is None:
+        chunks, device = [[t] for t in inputs], inputs[0].device
+    else:
+        chunks, device = [split_batch(t, placement) for t in inputs], placement.solve_device
+    outs = [fn(rep, *(c[r] for c in chunks)) for r, rep in enumerate(replicas)]
+    return tuple(gather_batch([o[k] for o in outs], device, n, dim=dim) for k in range(len(outs[0])))
+
+
+def decode_symmetric_split(replicas, placement, feat_i, pos_i, feat_j, pos_j, img_hw):
+    """:func:`decode_symmetric_batch` with the N pairs split over the dp
+    ranks of ``placement`` (``replicas``: one
+    :class:`~..models.mast3r.BackendReplica` a rank; ``[model]`` and None
+    for no split). Same outputs, on the solve device."""
+    return _over_ranks(lambda rep, fi, pi, fj, pj: decode_symmetric_batch(rep, fi, pi, fj, pj, img_hw),
+                       replicas, placement, (feat_i, pos_i, feat_j, pos_j), dim=1)
+
+
+def match_symmetric_split(replicas, placement, match_cfg, feat_i, pos_i, feat_j, pos_j, img_hw):
+    """:func:`match_symmetric` with the N pairs split over the dp ranks of
+    ``placement``: each rank decodes and matches its pairs on its own
+    devices (the refine on its first device); ``[model]`` and None for no
+    split. Same outputs, on the solve device."""
+    return _over_ranks(lambda rep, fi, pi, fj, pj: match_symmetric(rep, match_cfg, fi, pi, fj, pj, img_hw),
+                       replicas, placement, (feat_i, pos_i, feat_j, pos_j))
 
 
 def match_asymmetric(model, match_cfg, feat_f, pos_f, feat_k, pos_k, img_hw,

@@ -7,7 +7,8 @@ Behavioral spec: ``mast3r_slam/local_mapping.py`` — a factor dict keyed
 reference ships *disabled* (``enabled = False``, tracker.py:51). The JAX
 package's ``slam/local_mapping.py`` is the reference of this port. Enabled,
 its solve is the backend's :meth:`BackendGraph.solve_GN_rays`, so it runs
-the ray kernel.
+the ray kernel, and a ``placement`` keyword reaches the graph as the
+backend's does.
 """
 
 from __future__ import annotations

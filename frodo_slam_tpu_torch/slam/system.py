@@ -33,6 +33,15 @@ window solve gets per-keyframe scale targets from a ground-plane fit
 the 20-float flags vector plus the tracker's own small fetches; each backend
 solve one small fetch per GN iteration (see global_opt.py), and each plane
 fit one fetch of its region's rows.
+
+With a :class:`~..parallel.mesh.Placement` (config ``tpu.placement``, see
+:func:`~..parallel.mesh.default_placement`) the tracker, the keyframe store,
+the PGO, the height prior and the retrieval database stay on ``device``
+(the placement's tracker device) and the backend runs on the placement's
+grid: its own replicas of the decoder and heads, its edges and solves on the
+solve device. A threaded task copies the store straight onto the solve
+device; every backend result is moved back to ``device`` where it meets the
+frontend's state.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from ..config import Config
 from ..data.image import resize_img
 from ..models import mast3r
 from ..ops import lie
-from ..utils.device import resolve_device, set_f32_contract
+from ..utils.device import indexed, resolve_device, set_f32_contract
 from ..utils.log import get_logger
 from . import frame as frame_mod
 from .backend import BackendGraph
@@ -89,6 +98,7 @@ class SLAM:
     ``model`` is a :class:`~frodo_slam_tpu_torch.models.mast3r.MASt3R` on
     ``device``; ``device=None`` means the card and raises when there is none.
     ``local_opt_mode``: the robot VIO mode (scale-only PGO on odometry).
+    ``placement``: the backend on its own devices (None: on ``device``).
     """
 
     def __init__(
@@ -104,12 +114,16 @@ class SLAM:
         local_opt_mode: bool = False,
         device=None,
         keep_keyframe_images: bool = False,
+        placement=None,
     ):
         self.device = resolve_device(device)
         set_f32_contract()
         model_dev = next(model.parameters()).device
         if model_dev.type != self.device.type:
             raise ValueError(f"model lives on {model_dev}, SLAM runs on {self.device}")
+        if placement is not None and placement.tracker != indexed(self.device):
+            raise ValueError(f"the placement's tracker is {placement.tracker}, SLAM runs on {self.device}")
+        self.placement = placement
 
         self.cfg = cfg
         # portrait input (true height > width): store every image/map
@@ -183,7 +197,7 @@ class SLAM:
         self.backend = BackendGraph(
             self.model, self.ba_cfg, self.match_cfg, img_hw,
             max_edges=int(cfg.tpu.max_edges), max_odom=int(cfg.tpu.max_odom_edges),
-            Q_conf=float(lo.Q_conf), min_match_frac=float(lo.min_match_frac),
+            Q_conf=float(lo.Q_conf), min_match_frac=float(lo.min_match_frac), placement=placement,
         ) if use_backend else None
 
         self.pgo = make_pose_graph(int(cfg.tpu.max_keyframes), device=self.device)
@@ -575,13 +589,14 @@ class SLAM:
         single_thread mode the same code runs on the frontend thread on the
         live store (the serialized eval contract)."""
         with self._backend_lock:
-            store = self.store if self.single_thread else frame_mod.kf_snapshot(self.store)
+            store = self.store if self.single_thread else frame_mod.kf_snapshot(
+                self.store, device=self.backend.device)
             epoch, hp_gen = self._map_epoch, self._hp_gen
 
         kf_set = {idx - 1} if idx >= 1 else set()
         if self.retrieval is not None:
             # the keyframes retrieved for this one become loop-closure edges
-            feat = store.feat[idx % store.capacity][None]
+            feat = store.feat[idx % store.capacity][None].to(self.device)
             kf_set.update(self.retrieval.update(
                 feat, add_after_query=True, k=int(self.cfg.retrieval.k),
                 min_thresh=float(self.cfg.retrieval.min_thresh), kf_id=idx))
@@ -621,7 +636,7 @@ class SLAM:
             n_latest = len(self.kf_timestamps) - 1
             if n_latest in uniq[:p]:
                 w = uniq.index(n_latest)
-                self.active_kf = dataclasses.replace(self.active_kf, T_WC=T_new[w])
+                self.active_kf = dataclasses.replace(self.active_kf, T_WC=T_new[w].to(self.device))
                 if self.single_thread or n_latest == idx:
                     self.current_T_WC = T_new[w].cpu().numpy()
 
@@ -673,7 +688,8 @@ class SLAM:
         for k in uniq:
             v = self._hp_cache.get(k)
             if v is None:
-                pts = store.X_canon[int(k) % store.capacity][self._hp_region_idx].cpu().numpy()
+                rows = self._hp_region_idx.to(store.X_canon.device)
+                pts = store.X_canon[int(k) % store.capacity][rows].cpu().numpy()
                 h_bar = self.plane_estimator.run_points(pts)
                 # gauge-target convention: see height_prior.scale_targets
                 v = float(h_bar / self.camera_height) if (h_bar is not None and h_bar > 1e-6) else -1.0

@@ -8,7 +8,8 @@ compressed ``.npz`` of numpy arrays plus a small JSON sidecar of host
 bookkeeping, so a run restarts mid-sequence. The port's own layout: one
 array per tensor field under ``store/``, ``edges/``, ``odom/``, ``pgo/`` and
 ``rdb/``, the host counters in the sidecar. A checkpoint loads onto any
-device: the arrays land on the restoring ``SLAM``'s.
+device: the arrays land on the restoring ``SLAM``'s, the edge and odometry
+rows on its backend's (the solve device under a placement).
 """
 
 from __future__ import annotations

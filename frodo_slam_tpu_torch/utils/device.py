@@ -18,6 +18,15 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def indexed(device) -> torch.device:
+    """``device`` with its card's index (an unindexed "cuda" is the current
+    card)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def set_f32_contract() -> None:
     """The f32 heads are the reference contract (config ``tpu.head_dtype``).
     A float32 matmul already runs in full f32 on the card, but cuDNN runs

@@ -302,7 +302,8 @@ def test_backend_graph_with_fixed_match_matches_jax(tiny, monkeypatch):
         return fn
 
     monkeypatch.setattr(jbe, "match_symmetric", fake("j", jnp.asarray))
-    monkeypatch.setattr(tbe, "match_symmetric", fake("t", torch.from_numpy))
+    # the port's backend reaches it through inference.match_symmetric_split
+    monkeypatch.setattr(tinf, "match_symmetric", fake("t", torch.from_numpy))
     mc = _match_cfg()
     jg, tg = _graphs(tiny, match_cfg=mc, max_edges=4, max_odom=2, max_iters=10, Q_conf=1.5)
     for g, s in ((jg, js), (tg, ts)):
@@ -411,7 +412,7 @@ def test_kf_update_and_snapshot(tiny):
     T = torch.arange(16, dtype=torch.float32).reshape(2, 8)
     tframe.kf_update_T_WCs(store, T, [3, 1])
     assert torch.equal(store.T_WC[3], T[0]) and torch.equal(store.T_WC[1], T[1])
-    snap = tframe.kf_snapshot(store)
+    snap = tframe.kf_snapshot(store, store.T_WC.device)
     store.T_WC[0] = 7.0
     store.X_canon[2] = 1.0
     assert snap.T_WC[0, 0] == 0.0 and snap.X_canon[2].abs().sum() == 0

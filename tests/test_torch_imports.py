@@ -34,6 +34,9 @@ VIO_MODULES = ["frodo_slam_tpu_torch.run_vio", "frodo_slam_tpu_torch.slam.odomet
 VIZ_MODULES = ["frodo_slam_tpu_torch.viz", "frodo_slam_tpu_torch.viz.web",
                "frodo_slam_tpu_torch.viz.visualization", "frodo_slam_tpu_torch.data.live",
                "frodo_slam_tpu_torch.tools.train_codebook"]
+# multi-card placement and its dry run
+PLACEMENT_MODULES = ["frodo_slam_tpu_torch.parallel", "frodo_slam_tpu_torch.parallel.mesh",
+                     "frodo_slam_tpu_torch.tools.dryrun_multichip"]
 # functions that may import OpenCV in their bodies: the live robot poller,
 # and the one import of the video decoder and the cameras
 CV2_FUNCTIONS = {"frodo_slam_tpu_torch/slam/odometry.py": {"yaw_from_rays", "_loop"},
@@ -92,6 +95,10 @@ def test_vio_modules_are_covered():
 
 def test_viz_modules_are_covered():
     assert set(VIZ_MODULES) <= set(MODULES)
+
+
+def test_placement_modules_are_covered():
+    assert set(PLACEMENT_MODULES) <= set(MODULES)
 
 
 def test_importing_the_viewer_loads_no_matplotlib_and_no_opencv():

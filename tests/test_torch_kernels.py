@@ -498,6 +498,24 @@ def test_attention_kernel_takes_strided_views_and_rejects_bad_inputs(card):
 
 
 @pytest.mark.cuda
+def test_attention_kernel_on_a_second_card(card):
+    """The bf16 kernel needs more than 48 KB of dynamic shared memory, an
+    attribute each device holds for itself: after a launch on card 0, a
+    launch on card 1 (where a placement runs the backend) must run and
+    agree with the plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the attribute is per device, one card cannot show it")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in _attn_inputs((1, 6, 576, 576, 64), 2))
+        got = ak.flash_attention(q, k, v)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev
+        want = ak.flash_attention_plain(q, k, v)
+        scale = max(float(want.float().abs().max()), 1.0)
+        assert float((got.float() - want.float()).abs().max()) <= 1e-2 * scale
+
+
+@pytest.mark.cuda
 def test_retrieval_on_card_matches_cpu(card):
     """The retrieval head and the codebook quantization (f32 products, TF32
     off) on the card against the same on the CPU: attention within 1e-5

@@ -3,10 +3,12 @@
 ``frodo_slam_tpu_torch.main.run`` and ``frodo_slam_tpu.main.run`` over the
 same synthetic sequences, with the same converted tiny weights (shared heads
 and decoders, so identical frames track) and the f32 refine on both sides,
-at a 64-pixel long edge. Four runs: an image folder with base.yaml, the
+at a 64-pixel long edge. Five runs: an image folder with base.yaml, the
 same with a ``--calib`` yaml, the same with ``tpu.pipelined_frontend``, and
 a TUM fr1 sequence with a config that inherits ``configs/eval_calib.yaml``
-(calibrated tracker and backend, subsample 2). Bars: keyframe count and timestamps exact, trajectories atol
+(calibrated tracker and backend, subsample 2); and the image folder with
+``tpu.placement: shared``, the port's devices eight CPU aliases (a (4, 2)
+backend grid, as JAX's on its eight virtual devices). Bars: keyframe count and timestamps exact, trajectories atol
 1e-4 (the bar of tests/test_torch_system.py), keyframe PNGs equal, the PLY
 vertex count equal and its points (decoded pointmaps moved by the
 poses) within the decoder's bar of tests/test_model_parity.py, rtol 1e-3
@@ -45,6 +47,7 @@ from frodo_slam_tpu_torch.data import datasets as tds  # noqa: E402
 from frodo_slam_tpu_torch.data.prefetch import PrefetchLoader  # noqa: E402
 from frodo_slam_tpu_torch.models import convert as tconvert  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r as tmast3r  # noqa: E402
+from frodo_slam_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from frodo_slam_tpu_torch.slam import system as tsystem  # noqa: E402
 from test_torch_viz import check_served_and_stopped, spy_viewers  # noqa: E402
 
@@ -109,7 +112,13 @@ CASES = {
     "folder_pipelined": (_folder, "configs/base.yaml", False,
                          "tpu: {max_keyframes: 8, max_edges: 8, max_odom_edges: 8, pipelined_frontend: true}\n"),
     "tum_eval_calib": (_tum, "configs/eval_calib.yaml", False, ""),
+    "folder_placement_shared": (_folder, "configs/base.yaml", False,
+                                "tpu: {max_keyframes: 8, max_edges: 8, max_odom_edges: 8, placement: shared}\n"),
 }
+# cases whose port run sees eight CPU aliases as its devices, as the JAX run
+# sees the eight virtual devices of tests/conftest.py: tpu.placement shared
+# gives both a (4, 2) backend grid
+PLACED = {"folder_placement_shared"}
 
 
 def _tiny_load(real):
@@ -143,6 +152,8 @@ def _run_both(tmp_path, monkeypatch, weights, case):
             created.append(self)
 
     monkeypatch.setattr(tsystem, "SLAM", SpySLAM)
+    if case in PLACED:
+        monkeypatch.setattr(tmesh, "visible_devices", lambda device=None: [torch.device("cpu")] * 8)
     outs = {}
     for name, mod, kw in (("jax", jmain, {}), ("port", tmain, {"device": "cpu"})):
         run_dir = tmp_path / name
@@ -162,6 +173,10 @@ def test_port_runner_matches_jax_runner(tmp_path, monkeypatch, weights, case):
     assert t["retrieval"] == j["retrieval"] == "none"
     calibrated = "calib" in case
     assert slam.tcfg.use_calib == calibrated and (slam.K is not None) == calibrated
+    placed = slam.placement
+    assert (placed is None) == (case not in PLACED)
+    if placed is not None:  # JAX default_mesh("shared") over 8 devices: (4, 2)
+        assert (placed.dp, placed.tp, placed.backend_slots) == (4, 2, tuple(range(8))) and len(slam.backend.replicas) == 4
 
     rows_t, rows_j = np.loadtxt(t["traj"], dtype=str, ndmin=2), np.loadtxt(j["traj"], dtype=str, ndmin=2)
     n_frames = 8 // 2 if case.startswith("tum") else 4  # eval_calib subsamples by 2

@@ -2,7 +2,8 @@
 a recorded session (the pickle replay of ``OdometryData``), the fixture of
 ``tests/test_run_vio.py:19-32``: four identical BGR frames (64 px after the
 runner's resize), an odometry pose per frame, ``--use_odometry`` (the VIO
-mode), tiny weights converted from the JAX package's, serialized.
+mode), tiny weights converted from the JAX package's, serialized; once
+more with ``--use_multiple_gpu`` (the port's devices eight CPU aliases).
 
 Bars: keyframe count, backend pairs and odometry factors equal; keyframe
 poses within 1e-4; the runner's CLI as JAX ``build_parser``."""
@@ -58,7 +59,10 @@ def _cfg_yaml(tmp_path):
     return p
 
 
-def test_run_dataset_matches_jax(session_pkl, tmp_path, monkeypatch):
+def _run_both(session_pkl, tmp_path, monkeypatch, **extra):
+    """JAX ``run_dataset`` and the port's (on the CPU) over the session with
+    the same converted weights; ``extra`` args go to both. Returns (JAX
+    SLAM, port SLAM, the devices the port's loader was asked for)."""
     from frodo_slam_tpu import loader as jloader
     from frodo_slam_tpu import run_vio as jrv
     from frodo_slam_tpu.data import image as jimage
@@ -98,10 +102,14 @@ def test_run_dataset_matches_jax(session_pkl, tmp_path, monkeypatch):
 
     cfg = _cfg_yaml(tmp_path)
     args = types.SimpleNamespace(dataset=str(session_pkl), config=str(cfg), weights=None, no_retrieval=True,
-                                 use_odometry=True, wall_clock=False, every_n_frames=1, visualize=False)
+                                 use_odometry=True, wall_clock=False, every_n_frames=1, visualize=False,
+                                 **extra)
     js = jrv.run_dataset(args)
     ts = trv.run_dataset(args, device="cpu")
-    assert devices == ["cpu"] and ts.device.type == "cpu" and ts.local_opt_mode
+    return js, ts, devices
+
+
+def _assert_runs_agree(js, ts):
     assert ts.img_hw == js.img_hw == (32, 64)
     assert ts.store.n_total == int(js.store.n_total) >= 2
     assert ts.backend._pairs == js.backend._pairs
@@ -110,6 +118,28 @@ def test_run_dataset_matches_jax(session_pkl, tmp_path, monkeypatch):
     (st, pt), (sj, pj) = ts.keyframe_poses(), js.keyframe_poses()
     assert st == sj and np.isfinite(pt).all()
     np.testing.assert_allclose(pt, pj, atol=1e-4)
+
+
+def test_run_dataset_matches_jax(session_pkl, tmp_path, monkeypatch):
+    js, ts, devices = _run_both(session_pkl, tmp_path, monkeypatch)
+    assert devices == ["cpu"] and ts.device.type == "cpu" and ts.local_opt_mode
+    assert ts.placement is None  # device="cpu" is one device: no placement
+    _assert_runs_agree(js, ts)
+
+
+def test_run_dataset_use_multiple_gpu_matches_jax(session_pkl, tmp_path, monkeypatch):
+    """``--use_multiple_gpu`` sets ``tpu.placement: overlap`` on both sides:
+    JAX's backend mesh covers its virtual devices 1-7, the port's backend
+    slots 1-7 of eight CPU aliases (the enumerator patched), the tracker
+    slot 0."""
+    from frodo_slam_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "visible_devices", lambda device=None: [torch.device("cpu")] * 8)
+    js, ts, _ = _run_both(session_pkl, tmp_path, monkeypatch, use_multiple_gpu=True)
+    pl = ts.placement
+    assert (pl.dp, pl.tp, pl.backend_slots) == (7, 1, tuple(range(1, 8)))
+    assert len(ts.backend.replicas) == 7
+    _assert_runs_agree(js, ts)
 
 
 def test_run_dataset_every_n_and_empty(session_pkl, tmp_path, monkeypatch):

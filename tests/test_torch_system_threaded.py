@@ -79,6 +79,36 @@ def test_threaded_backend_joins_and_matches_serialized(model):
     np.testing.assert_allclose(slam.keyframe_poses()[1], ser.keyframe_poses()[1], atol=1e-6)
 
 
+def test_threaded_overlap_placement_matches_serialized(model):
+    """``overlap`` with the tracker on slot 0 and the backend on dp = 2
+    ranks (slots 1 and 2 of three CPU aliases), threaded: the replicas share
+    no parameter storage with the tracker's model, every task's store copy
+    goes to the solve device, and the run joins and equals the serialized
+    unplaced run (poses atol 1e-5: split decode sums differ in rounding)."""
+    from frodo_slam_tpu_torch.parallel import mesh
+
+    pl = mesh.make_placement(2, 1, [torch.device("cpu")] * 3, first_slot=1)
+    img = _img(0)
+    slam = SLAM(_slam(model).cfg, model, (H, W), use_backend=True, single_thread=False, device="cpu",
+                placement=pl)
+    ser = SLAM(slam.cfg, model, (H, W), use_backend=True, single_thread=True, device="cpu")
+    own = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    assert len(slam.backend.replicas) == 2
+    for rep in slam.backend.replicas:
+        assert not own & {p.untyped_storage().data_ptr() for p in rep.parameters()}
+    for i in range(4):
+        ok, pose, _ = slam.grab_rgb(img, timestamp=float(i))
+        assert ok and np.all(np.isfinite(pose))
+        slam._join_backend()
+        ser.grab_rgb(img, timestamp=float(i))
+    slam.backend.add_factors(slam.store, [0, 1, 2], [3, 3, 3])  # three pairs padded over two ranks
+    ser.backend.add_factors(ser.store, [0, 1, 2], [3, 3, 3])
+    slam.terminate()
+    assert slam._backend_tasks.unfinished_tasks == 0 and slam._backend_worker is None
+    assert slam.backend._pairs == ser.backend._pairs
+    np.testing.assert_allclose(slam.keyframe_poses()[1], ser.keyframe_poses()[1], atol=1e-5)
+
+
 def test_threaded_backend_overlaps_tracking(model):
     """Frames tracked while a slowed solve is in flight: the lock does not
     serialize them, and the solved poses still merge back."""
