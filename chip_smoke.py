@@ -79,7 +79,26 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      512x384 with shared random decoders, --no-retrieval --save-as: finite
      trajectory rows, the .ply, one PNG per keyframe; per-frame and
      per-solve ms, edge rows per window, peak memory;
- 14. reloc_main: retrieval loop closure and relocalization through threaded
+ 14. realtime_main: the dataset runner with a config that inherits
+     configs/realtime.yaml (bf16 heads, ``tpu.x64_eval: false``, the
+     pipelined frontend) and forces every tracked frame to a keyframe, on 12
+     identical 288x512 PNGs it writes, ViT-L with shared random decoders,
+     --no-retrieval: the resolved numerics (x64 off, the f32 window solve
+     with one refinement step), every solve in f32, every kernel launched;
+     per-frame host ms, solve wall ms and GN iterations, peak memory;
+ 15. realtime_backend_main: backend_main's 12 frames threaded, once with
+     ``tpu.x64_eval: false`` and once with it true, in one process: solve
+     wall ms, GN iterations and ray launches per solve in each, the largest
+     pose difference between the two runs; then one window of the x64-off
+     run (poses perturbed so that it iterates) solved on the card and on the
+     CPU (plain versions) in each numerics, held within RT_SOLVE_BAR, with
+     the card's solve ms in each;
+ 16. cli_fps_main: ``tools/cli_fps.py --frames 64`` on the card (the
+     committed runner with configs/bench_cli.yaml, ViT-L 288x512, identical
+     frames: the track-only regime); its JSON line as it prints it, the FPS
+     windows, the runner's numerics (x64 off) and the kernels its process
+     launched (counted in the child, zeroed when it starts);
+ 17. reloc_main: retrieval loop closure and relocalization through threaded
      SLAM(use_backend=True, use_reloc=True) at ViT-L 288x512 (shared random
      decoders), the retrieval head at 1024 -> 1024 with nfeat 300 and a
      random codebook of 65,536 words (256 MiB on the card): a camera panning
@@ -92,7 +111,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      against their numpy plain versions at the query's shapes. Per-keyframe
      retrieval ms split into query and insert, relocalization ms, loop
      edges, launches;
- 15. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
+ 18. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
      on a recorded session that this script writes under build/chip_smoke/
      (16 identical 360x640 BGR frames, an odometry pose per frame,
      --use_odometry, every_n_frames 1), ViT-L at 288x512 with shared random
@@ -101,7 +120,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      poses, odometry factors, every kernel launched, no failed backend
      task; per-frame and per-task ms, the PGO's ms and live count, plane
      fits (rows, ms, live targets), peak memory;
- 16. viz_main: the same run with ``--visualize``: the live map viewer on a
+ 19. viz_main: the same run with ``--visualize``: the live map viewer on a
      free port while the backend worker writes the store in place; a client
      thread polls /state.json and /points.bin every 0.2 s, pauses the run
      after frame 4 (no frame for 1 s), steps exactly one frame, resumes, and
@@ -110,7 +129,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      edges, and the points numpy recomputes from the store on the host
      (1e-5 relative to max(1, |x|)); no viewer error. Frame ms beside
      vio_main's, snapshots (host ms, bytes fetched), peak memory;
- 17. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
+ 20. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
      (its ``main``) over 224 smooth random 288x512 PNGs it writes under
      build/chip_smoke/codebook/: the random-weight ViT-L encoder and the
      seeded retrieval head (1024 -> 1024, nfeat 300), 67,200 features,
@@ -120,20 +139,21 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      the pickle loads not degraded; a training image is retrieved first.
      Encode ms per image, k-means ms per iteration beside its f32 bound,
      attention launches (24 an image), peak memory;
- 18. synthetic: the port's oracle harness (``python -m
+ 21. synthetic: the port's oracle harness (``python -m
      frodo_slam_tpu_torch.tools.eval_synthetic --device cuda``) in
      subprocesses: the straight row (10 frames at 3 mm), the --per-frame row
      (warm frames) and the loop row (14 frames at 4 mm, with and without
      retrieval) and the VIO row (16 frames at 2 mm, with and without
      odometry), each held to the JAX package's bars; ATEs and launches;
- 19. the script's wall time; the kernels line; the device line (last line
+ 22. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
-On every path (6, 11, 12, 13, 14, 15, 16, 17 and 18; each run of 11 and 12)
-the kernel launch counters are zeroed just before it and read just after;
-each path must launch each of its kernels (the oracle of 18 replaces the
-model: no attention there; the trainer of 17 runs the encoder only:
-attention alone).
+On every path (6, 11-21; each run of 11, 12 and 15) the kernel launch
+counters are zeroed just before it and read just after; each path must
+launch each of its kernels (the oracle of 21 replaces the model: no
+attention there; the trainer of 20 runs the encoder only: attention alone;
+the track-only run of 16 makes no keyframe after the first, so no window
+solve and no ray kernel).
 Its peak memory window starts after a garbage collection, and the bytes
 still allocated then are printed beside the peak.
 
@@ -728,7 +748,10 @@ def _instrument(slam, rec, timed):
                 torch.cuda.synchronize()
             t0, l0 = time.perf_counter(), ray.launches
             out = fn(*a, **k)
-            r = dict(stage=stage)
+            # a solve ends in its last iteration's host fetch, so its wall
+            # time holds its device work (and what the frontend queued on
+            # the shared stream meanwhile)
+            r = dict(stage=stage, wall_ms=(time.perf_counter() - t0) * 1e3)
             if timed:
                 torch.cuda.synchronize()
                 r["ms"] = (time.perf_counter() - t0) * 1e3
@@ -743,14 +766,18 @@ def _instrument(slam, rec, timed):
     be.solve_window_rays = wrap("solve", be.solve_window_rays)
 
 
-def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phase="backend_main"):
+def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phase="backend_main",
+                 x64_eval=None, keep=False):
     """``extra_pairs`` (0, 2 or 3): after the run, one add_factors of that
     many pairs with the newest keyframe (n-2: consecutive, 2 and 0: loop
     closures) and a window solve. Each solve launches the ray kernel once a
-    GN iteration and edge part."""
+    GN iteration and edge part. ``x64_eval``: ``tpu.x64_eval`` of the run's
+    config (None: absent, the f64 solve). ``keep``: the result carries the
+    terminated SLAM under ``"slam"``."""
     failures = _Failures()
     logging.getLogger("frodo_slam_tpu_torch").addHandler(failures)
-    slam = SLAM(_backend_cfg(), model, frames[0].shape[:2], use_backend=True,
+    tpu = {} if x64_eval is None else {"x64_eval": x64_eval}
+    slam = SLAM(_backend_cfg(**tpu), model, frames[0].shape[:2], use_backend=True,
                 single_thread=single_thread, placement=placement)
     rec = []
     _instrument(slam, rec, timed=single_thread)
@@ -783,6 +810,7 @@ def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phas
                decode_match_ms=[round(r["ms"], 3) for r in rec
                                 if r["stage"] == "decode_match" and "ms" in r],
                solve_ms=[round(r["ms"], 3) for r in solves if "ms" in r],
+               solve_wall_ms=[round(r["wall_ms"], 3) for r in solves], solve_f64=slam.ba_cfg.solve_f64,
                gn_iters=[r["iters"] for r in solves], ray_launches_per_solve=[r["ray_launches"] for r in solves],
                edge_rows=[r["edge_rows"] for r in solves], window_poses=[r["poses"] for r in solves],
                pairs=len(slam.backend._pairs), n_odom=slam.backend._n_odom, launches=launches,
@@ -805,6 +833,8 @@ def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phas
     assert launches["ray_edge_systems"] == sum(out["ray_launches_per_solve"])
     assert out["ray_launches_per_solve"] == [i * k for i, k in zip(out["gn_iters"], parts)]
     assert len(solves) == len(frames) - 1 + int(extra_pairs > 0)
+    if keep:
+        out["slam"] = slam
     return out
 
 
@@ -1092,6 +1122,220 @@ def phase_dataset_main(n_images=24, work=None):
     assert launches["flash_attention"] > 0 and launches["refine_matches"] > 0, launches
     assert launches["ray_edge_systems"] == 0, "the calibrated path launched the ray kernel"
     return r
+
+
+# ---------------------------------------------------------------------------
+# the real-time numerics (tpu.x64_eval: false): realtime.yaml, the backend
+# in both numerics, bench_cli.yaml through tools/cli_fps.py
+# ---------------------------------------------------------------------------
+
+def _write_identical(folder: pathlib.Path, n: int, h: int, w: int, seed=3):
+    """``n`` copies of one smooth random h x w frame as PNGs (random weights
+    track identical frames only)."""
+    import PIL.Image
+
+    folder.mkdir(parents=True, exist_ok=True)
+    img = (smooth_random_frames(1, h, w, seed=seed)[0] * 255).astype(np.uint8)
+    for i in range(n):
+        PIL.Image.fromarray(img).save(folder / f"{i:05d}.png")
+
+
+def phase_realtime_main(n_frames=12, work=None):
+    """``main.run`` with a config that inherits configs/realtime.yaml (bf16
+    heads, ``tpu.x64_eval: false``, the pipelined frontend) and forces every
+    tracked frame to a keyframe, on an image folder of 12 identical 288x512
+    frames it writes, ViT-L with shared random decoders, --no-retrieval:
+    every window solve runs the f32 solve with one refinement step."""
+    work = pathlib.Path(work or ROOT / "build" / "chip_smoke") / "realtime"
+    seq = work / "seq"
+    _write_identical(seq, n_frames, 288, 512)
+    cfg = work / "realtime_smoke.yaml"
+    cfg.write_text("\n".join([f'inherit: "{ROOT / "configs" / "realtime.yaml"}"']
+                             + [f"{k}: {json.dumps(v)}" for k, v in FORCE_KEYFRAMES.items()]) + "\n")
+    args = types.SimpleNamespace(dataset=str(seq), config=str(cfg), calib=None, save_as=None, no_viz=True,
+                                 viz=False, weights=None, no_retrieval=True, max_frames=None)
+    rec = dict(frame_ms=[], solves=[], slam=None)
+    real = dict(grab=SLAM.grab_rgb_pipelined, rays=BackendGraph.solve_window_rays)
+
+    def grab(self, *a, **k):  # host time of each call (its flags arrive a frame late)
+        rec["slam"] = self
+        t = time.perf_counter()
+        out = real["grab"](self, *a, **k)
+        rec["frame_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def solve_rays(self, *a, **k):
+        t = time.perf_counter()
+        out = real["rays"](self, *a, **k)  # ends in a host fetch
+        rec["solves"].append(dict(wall_ms=(time.perf_counter() - t) * 1e3, solve_f64=self.cfg.solve_f64,
+                                  **({} if out is None else self.last_solve)))
+        return out
+
+    SLAM.grab_rgb_pipelined, BackendGraph.solve_window_rays = grab, solve_rays
+    cwd, env = os.getcwd(), os.environ.get("FRODO_RANDOM_SHARE_DECODER")
+    os.environ["FRODO_RANDOM_SHARE_DECODER"] = "1"  # identical frames track (loader.py)
+    try:
+        os.chdir(work)
+        at_start = reset_peak()
+        zero_counts()
+        t0 = time.perf_counter()
+        runner.run(args, device=DEV)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        os.chdir(cwd)
+        SLAM.grab_rgb_pipelined, BackendGraph.solve_window_rays = real["grab"], real["rays"]
+        if env is None:
+            os.environ.pop("FRODO_RANDOM_SHARE_DECODER", None)
+        else:
+            os.environ["FRODO_RANDOM_SHARE_DECODER"] = env
+    slam = rec["slam"]
+    poses = slam.keyframe_poses()[1]
+    solves = [r for r in rec["solves"] if "iters" in r]
+    r = dict(frames=len(rec["frame_ms"]), keyframes=int(slam.store.n_total), run_s=run_s,
+             x64_eval=slam.cfg["tpu"]["x64_eval"], solve_f64=slam.ba_cfg.solve_f64,
+             head_dtype=str(slam.model_cfg.head_dtype).split(".")[-1],
+             pipelined=bool(slam.cfg["tpu"]["pipelined_frontend"]),
+             frame_ms=[round(x, 3) for x in rec["frame_ms"]],
+             median_frame_ms_after_first=statistics.median(rec["frame_ms"][1:]),
+             solve_wall_ms=[round(x["wall_ms"], 3) for x in solves], gn_iters=[x["iters"] for x in solves],
+             edge_rows=[x["edge_rows"] for x in solves],
+             max_memory_allocated=torch.cuda.max_memory_allocated(), allocated_at_start=at_start,
+             launches=launches)
+    emit("realtime_main", **r)
+    assert r["x64_eval"] is False and not r["solve_f64"] and r["head_dtype"] == "bfloat16" and r["pipelined"]
+    assert r["keyframes"] == n_frames and np.isfinite(poses).all() and poses.shape == (n_frames, 8)
+    assert len(solves) == n_frames - 1 and not any(x["solve_f64"] for x in solves), rec["solves"]
+    for name in WRAPPERS:
+        assert launches[name] > 0, f"realtime_main never launched {name}: {launches}"
+    return r
+
+
+# one window solved on the card vs on the CPU (kernel vs plain f32 edge
+# systems, the card's vs the CPU's factorization). f32 (one refinement
+# step): the first card run read 3.9e-6 (NVIDIA H100 80GB HBM3, 700.00 W),
+# the bar is about 10x that; f64: the card-vs-CPU bar of the other window
+# solves (vio_tiny: atol 1e-4), read 9.8e-7
+RT_SOLVE_BAR = {False: 5e-5, True: 1e-4}
+
+
+def phase_realtime_backend_main(n_frames=12, hw=(288, 512)):
+    """backend_main's 12 frames (every frame a keyframe, odometry, ViT-L
+    288x512, shared random decoders), threaded, once with ``tpu.x64_eval:
+    false`` and once with it true, in one process: solve wall ms, GN
+    iterations and ray launches per solve, the largest pose difference
+    between the two runs. Then one window of the x64-off run's store, its
+    poses perturbed so that the solve iterates, solved on the card and on
+    the CPU (plain versions) in each numerics: the two held within
+    RT_SOLVE_BAR, the card's solve ms (median of 3, synced) in each."""
+    model = mast3r.init_model(mast3r.MASt3RConfig(), seed=0, device=DEV)
+    model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
+    model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
+    frames = smooth_random_frames(1, *hw, seed=3) * n_frames
+    runs = {}
+    for x64 in (False, True):
+        runs[x64] = _backend_run(model, frames, single_thread=False, extra_pairs=0, x64_eval=x64,
+                                 phase=f"realtime_backend_x64_{'on' if x64 else 'off'}", keep=True)
+        assert runs[x64]["solve_f64"] is x64
+    between = float(np.abs(np.asarray(runs[False]["poses"]) - np.asarray(runs[True]["poses"])).max())
+
+    slam = runs[False].pop("slam")
+    runs[True].pop("slam").terminate()
+    be = slam.backend
+    uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = be._build_window(slam.store, None)
+    noise = torch.from_numpy(np.random.default_rng(4).normal(size=(T_win.shape[0], 7)) * 0.01).float()
+    noise[:be.cfg.pin] = 0.0
+    T0 = lie.sim3_retr(T_win, noise.to(DEV))
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    win_cpu = (T0.cpu(), X_win.cpu(), C_win.cpu(), type(edges_win)(*map(cpu, edges_win)),
+               type(odom_win)(*map(cpu, odom_win)), sb.cpu())
+    n_active = 2 * len(be._pairs)
+    solve = {}
+    for f64 in (False, True):
+        cfg = be.cfg._replace(solve_f64=f64)
+        st, ms = {}, []
+        l0 = ba_reduce_kernel.ray_edge_systems.launches
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = global_opt.solve_gn_rays(cfg, cfg.pin, T0, X_win, C_win, edges_win, odom_win, sb,
+                                           stats=st, n_active=n_active)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        launched = (ba_reduce_kernel.ray_edge_systems.launches - l0) // 3
+        st_cpu = {}
+        want = global_opt.solve_gn_rays(cfg, cfg.pin, *win_cpu[:3], win_cpu[3], win_cpu[4], win_cpu[5],
+                                        stats=st_cpu, n_active=n_active)
+        solve[f64] = dict(ms=statistics.median(ms), all_ms=[round(x, 3) for x in ms], iters=st["iters"],
+                          iters_cpu=st_cpu["iters"], ray_launches=launched,
+                          card_vs_cpu=float((got.cpu() - want).abs().max()),
+                          step=float((got - T0).abs().max()), bar=RT_SOLVE_BAR[f64], poses=got)
+    slam.terminate()
+    f32_vs_f64 = float((solve[False]["poses"] - solve[True]["poses"]).abs().max())
+    for v in solve.values():
+        v.pop("poses")
+    out = dict(modes={("x64_on" if k else "x64_off"): dict(
+                   solve_wall_ms=r["solve_wall_ms"], gn_iters=r["gn_iters"],
+                   ray_launches_per_solve=r["ray_launches_per_solve"],
+                   median_frame_ms_after_first=r["median_frame_ms_after_first"], launches=r["launches"])
+               for k, r in runs.items()},
+               pose_max_abs_diff_between_modes=between, window_poses=int(T_win.shape[0]),
+               window_rows=int(edges_win.ii.shape[0]), live_rows=n_active,
+               window_solve={("f64" if k else "f32"): v for k, v in solve.items()},
+               window_f32_vs_f64=f32_vs_f64,
+               solve_ms_ratio_f64_over_f32=solve[True]["ms"] / solve[False]["ms"])
+    emit("realtime_backend_main", **out)
+    for f64, v in solve.items():
+        if not v["card_vs_cpu"] <= v["bar"]:
+            raise AssertionError(f"window solve (f64={f64}) on the card off the CPU's: {v}")
+        assert v["ray_launches"] == v["iters"] and v["iters"] >= 2, v
+    return runs, out
+
+
+# counts the kernels the runner's process launches (tools/cli_fps.py runs
+# the runner in a child process): zeroed when the child starts, printed at
+# its end
+CLI_FPS_SHIM = """
+import json, runpy, sys
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel
+fns = {"refine_matches": refine_kernel.refine_matches, "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
+       "flash_attention": attention_kernel.flash_attention}
+for f in fns.values():
+    f.launches = 0
+sys.argv = ["frodo_slam_tpu_torch.main"] + sys.argv[1:]
+runpy.run_module("frodo_slam_tpu_torch.main", run_name="__main__")
+print("kernel_launches " + json.dumps({k: f.launches for k, f in fns.items()}), flush=True)
+"""
+
+
+def phase_cli_fps_main(frames=64):
+    """``tools/cli_fps.py --frames 64`` on the card: the committed runner with
+    configs/bench_cli.yaml (f32 heads, x64 off, threaded, pipelined, gates
+    off), ViT-L 288x512, identical frames: the track-only regime (no
+    keyframe after the first, so no backend solve). Its JSON line printed
+    as it is; the runner's own kernel launches beside it."""
+    from frodo_slam_tpu_torch.tools import cli_fps
+
+    real = cli_fps.runner_cmd
+    cli_fps.runner_cmd = lambda seq, cfg, n: [sys.executable, "-c", CLI_FPS_SHIM, *real(seq, cfg, n)[3:]]
+    try:
+        t0 = time.perf_counter()
+        line, proc = cli_fps.measure(frames, timeout=900)
+        wall_s = time.perf_counter() - t0
+    finally:
+        cli_fps.runner_cmd = real
+    print(json.dumps(line), flush=True)
+    got = [ln for ln in proc.stdout.splitlines() if ln.startswith("kernel_launches ")]
+    launches = json.loads(got[-1].split(" ", 1)[1]) if got else None
+    emit("cli_fps_main", wall_s=wall_s, value=line["value"], windows=line["windows"], x64_eval=line["x64_eval"],
+         card=line["card"], launches=launches)
+    if line["rc"] != 0 or launches is None:
+        raise AssertionError(f"cli_fps run failed (rc {line['rc']}):\n{proc.stderr[-3000:]}")
+    assert line["value"] is not None and line["value"] > 0 and len(line["windows"]) == frames // 30, line
+    assert line["x64_eval"] is False, line
+    assert launches["flash_attention"] > 0 and launches["refine_matches"] > 0, launches
+    return dict(line=line, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1782,6 +2026,9 @@ def main():
     ser, thr = phase_backend_main()
     placed, _ = phase_placement_main()
     ds = phase_dataset_main()
+    rt = phase_realtime_main()
+    rt_runs, _ = phase_realtime_backend_main()
+    fps = phase_cli_fps_main()
     reloc = phase_reloc_main()
     vio = phase_vio_main()
     viz = phase_viz_main(vio)
@@ -1791,13 +2038,17 @@ def main():
     # path handed it last
     E_main = ser["edge_rows"][-1]
     ray_t = per_ray[{16: "win16_8p", 32: "win32_11p"}.get(E_main, f"all{E_main}")]
-    rt = refine["384x512"]
+    rf = refine["384x512"]
     at = attn[0]  # the encoder at 768 tokens: (1, 16, 768, 64) bf16
     per_path = lambda name: {"main": main_launches[name],  # noqa: E731
                              "backend_main": [ser["launches"][name], thr["launches"][name]],
                              "placement_main": [placed["shared"]["launches"][name],
                                                 placed["overlap"]["launches"][name]],
                              "dataset_main": ds["launches"][name],
+                             "realtime_main": rt["launches"][name],
+                             "realtime_backend_main": [rt_runs[False]["launches"][name],
+                                                       rt_runs[True]["launches"][name]],
+                             "cli_fps_main": fps["launches"][name],
                              "reloc_main": reloc["launches"][name],
                              "vio_main": vio["launches"][name],
                              "viz_main": viz["launches"][name],
@@ -1811,14 +2062,14 @@ def main():
         "also_replaces": "frodo_slam_tpu/ops/refine_fused_pallas.py:322",
         "launches": ds["launches"]["refine_matches"],
         "launches_per_path": per_path("refine_matches"),
-        "shape": rt["shape"],
+        "shape": rf["shape"],
         "equal_to_plain": True,
-        "max_abs_err": rt["max_abs_err"],
-        "ms": rt["ms"],
-        "ms_smooth": rt["ms_smooth"],
-        "plain_ms": rt["plain_ms"],
-        "bound_ms": rt["bound_ms"],
-        "bound_by": rt["bound_by"],
+        "max_abs_err": rf["max_abs_err"],
+        "ms": rf["ms"],
+        "ms_smooth": rf["ms_smooth"],
+        "plain_ms": rf["plain_ms"],
+        "bound_ms": rf["bound_ms"],
+        "bound_by": rf["bound_by"],
         "library_ms": None,
         "per_shape": {k: {f: v[f] for f in ("ms", "ms_smooth", "ms_collisions", "plain_ms", "bound_ms",
                                             "bound_by")}

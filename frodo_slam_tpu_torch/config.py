@@ -166,3 +166,23 @@ def make_config(path: Optional[str] = None, **overrides: Any) -> Config:
     if overrides:
         cfg = merge_config(cfg, overrides)
     return Config(cfg)
+
+
+def apply_x64_knob(cfg, entry_default: bool) -> bool:
+    """Resolve ``tpu.x64_eval`` for one entry point (the JAX package's
+    ``config.apply_x64_knob``): an explicit value wins, else the entry
+    point's default (dataset runner and session replay on, the live robot
+    off). The value is written back into ``cfg["tpu"]["x64_eval"]``, where
+    ``SLAM`` reads it: on, the window solve runs in f64 (the reference's
+    double Eigen solve); off, in f32 with damping and one refinement step
+    (the real-time numerics of ``configs/realtime.yaml``). No global state
+    is set. Logs and returns the resolved value."""
+    from .utils.log import get_logger
+
+    tpu = cfg.setdefault("tpu", {})
+    v = tpu.get("x64_eval", None)
+    v = bool(entry_default) if v is None else bool(v)
+    tpu["x64_eval"] = v
+    get_logger("config").info("numerics: tpu.x64_eval=%s (%s window solve)", v,
+                              "f64" if v else "f32 + one refinement step")
+    return v

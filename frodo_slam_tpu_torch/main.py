@@ -27,8 +27,12 @@ backend on the other cards when there are several
 ``default_mesh``); on one card, or with ``run(args, device="cpu")``, there is
 no placement.
 
-Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
-effect (the port's window solve is always f64).
+``FRODO_DEVICE=cpu`` in the environment runs the CLI on the CPU.
+
+``tpu.x64_eval`` picks the window solve's numerics
+(:func:`~.config.apply_x64_knob`): on by default here, as in the JAX runner
+(the f64 solve); ``configs/realtime.yaml`` and ``configs/bench_cli.yaml``
+turn it off (the f32 solve with one refinement step).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def run(args, device=None) -> dict:
     import yaml
 
     from . import loader
-    from .config import make_config
+    from .config import apply_x64_knob, make_config
     from .data import datasets
     from .data.prefetch import PrefetchLoader
     from .models import mast3r
@@ -59,6 +63,8 @@ def run(args, device=None) -> dict:
     from .utils import evaluate
 
     cfg = make_config(args.config)
+    # dataset runs default to the f64 solve (JAX main.py:32)
+    apply_x64_knob(cfg, entry_default=True)
     calib_yaml = None
     if args.calib:
         with open(args.calib) as f:
@@ -190,7 +196,10 @@ def build_parser():
 
 
 if __name__ == "__main__":
+    import os
+
     from .utils.log import configure
 
     configure("logs/slam.log")
-    run(build_parser().parse_args())
+    # FRODO_DEVICE=cpu runs the CLI on the CPU (tools/cli_fps.py --device cpu)
+    run(build_parser().parse_args(), device=os.environ.get("FRODO_DEVICE") or None)

@@ -21,8 +21,10 @@ sets it to ``overlap`` (the reference's backend on a second GPU,
 run_vio.py:111-114). On one card, or with ``device="cpu"``, there is no
 placement.
 
-Differences from the JAX runner: ``tpu.x64_eval`` is accepted and has no
-effect (the port's window solve is always f64).
+``tpu.x64_eval`` picks the window solve's numerics
+(:func:`~.config.apply_x64_knob`), with the JAX runner's defaults: the
+replay runs the f64 solve, the live robot the f32 solve with one refinement
+step (real-time numerics); an explicit value in the config wins.
 """
 
 from __future__ import annotations
@@ -56,17 +58,18 @@ def _load_calib_K(args, cfg):
     return ci.K_frame
 
 
-def _setup(args, device):
+def _setup(args, device, x64_default: bool):
     """Config, calibration, model and placement, as both entry points load
-    them."""
+    them; ``tpu.x64_eval`` resolved with the entry point's default."""
     from . import loader
-    from .config import make_config
+    from .config import apply_x64_knob, make_config
     from .models import mast3r
     from .parallel import mesh
 
     cfg = make_config(args.config)
     if getattr(args, "use_multiple_gpu", False):
         cfg["tpu"]["placement"] = "overlap"  # the reference's --use_multiple_gpu
+    apply_x64_knob(cfg, entry_default=x64_default)
     K_frame = _load_calib_K(args, cfg)
     model_cfg = loader.apply_model_knobs(mast3r.MASt3RConfig(), cfg)
     model, model_cfg = loader.load_mast3r(args.weights, cfg=model_cfg, device=device)
@@ -112,7 +115,8 @@ def run_dataset(args, device=None):
     terminated ``SLAM`` (None for an empty session)."""
     from .slam.odometry import OdometryData
 
-    cfg, K_frame, model, retrieval, placement = _setup(args, device)
+    # the replay defaults to the f64 solve (JAX run_vio.py:54)
+    cfg, K_frame, model, retrieval, placement = _setup(args, device, x64_default=True)
     data = OdometryData(args.dataset, wall_clock=args.wall_clock, use_odometry=args.use_odometry)
     slam = viewer = None
     i = 0
@@ -150,7 +154,9 @@ def run_robot(args, device=None):  # pragma: no cover - hardware
     backend threaded, the VIO mode on."""
     from .slam.odometry import StraightOrSpinOdometry
 
-    cfg, K_frame, model, retrieval, placement = _setup(args, device)
+    # the live robot runs the real-time numerics unless the config says
+    # otherwise (JAX run_vio.py:123)
+    cfg, K_frame, model, retrieval, placement = _setup(args, device, x64_default=False)
     odo = StraightOrSpinOdometry(robot_type=args.robot_type)
     odo.start()
     slam = viewer = None

@@ -19,8 +19,11 @@ reduced over the points, by the Hopper kernel of :mod:`..ops.ba_reduce_kernel`
 (its plain version on a CPU tensor); the calibrated edges, which JAX reduces
 with XLA too, are batched tensor code over chunks of edges
 (:func:`_calib_edge_systems`). The dense (7P x 7P) system is assembled
-on the device and Cholesky-solved there in f64 (the reference's double Eigen
-solve, and the JAX package under x64).
+on the device and Cholesky-solved there: in f64 by default (the reference's
+double Eigen solve, and the JAX package under x64), or, with
+``BAConfig.solve_f64`` off (``tpu.x64_eval: false``, the real-time
+configurations), in f32 with a larger damping and one step of iterative
+refinement, as the JAX package solves with x64 off.
 
 The GN loop stops early on the host: each iteration fetches one bool
 (``|dx| >= delta_norm``), so a solve makes exactly one edge-kernel launch per
@@ -66,6 +69,9 @@ class BAConfig(NamedTuple):
     pixel_border: float = -10.0
     depth_eps: float = 1e-6
     sigma_point: float = 0.05  # point alignment (config/base.yaml:33,54)
+    # ``tpu.x64_eval``: the window solve in f64 (the reference's double Eigen
+    # solve), else in f32 with damping and one refinement step
+    solve_f64: bool = True
 
 
 # points per step of the calibrated edge reduction: bounds its (c, N, 3, 8)
@@ -403,21 +409,23 @@ def _odom_jacobian(Ti, Tj, delta_T):
 
 
 def _odom_edge_system(cfg: BAConfig, T_WC, edge_ii, edge_jj, delta_T):
-    """Odometry constraints -> (H (O, 14, 14), g (O, 14)) in f64, ordered
+    """Odometry constraints -> (H (O, 14, 14), g (O, 14)), ordered
     (pose_i, pose_j), for index tensors ``edge_ii``/``edge_jj`` (O,) and
     ``delta_T`` (O, 7); ints and one (7,) give one (14, 14), (14,).
 
     The Jacobian is exact (the reference's hand-derived adjoint is
     first-order near identity only; see the JAX package's docstring). The
     JAX package takes ``jacfwd`` of the residual; here it is the closed form
-    of :func:`_odom_jacobian`, in f64 whatever the poses' type: a few dozen
-    tensor ops per GN iteration for all rows, where forward-mode AD cost
-    ~1,900 eager kernels."""
+    of :func:`_odom_jacobian`: a few dozen tensor ops per GN iteration for
+    all rows, where forward-mode AD cost ~1,900 eager kernels. With
+    ``cfg.solve_f64`` it runs in f64 whatever the poses' type; without, in
+    the poses' type, as the JAX package's x64-off program does."""
     single = not torch.is_tensor(edge_ii) or edge_ii.dim() == 0
     ii = torch.as_tensor(edge_ii, device=T_WC.device).reshape(-1)
     jj = torch.as_tensor(edge_jj, device=T_WC.device).reshape(-1)
-    T = T_WC.to(torch.float64)
-    r, J = _odom_jacobian(T[ii], T[jj], delta_T.to(torch.float64).reshape(-1, 7))
+    dt = torch.float64 if cfg.solve_f64 else T_WC.dtype
+    T = T_WC.to(dt)
+    r, J = _odom_jacobian(T[ii], T[jj], delta_T.to(dt).reshape(-1, 7))
     w = torch.cat([
         huber(r[:, :3] / cfg.sigma_odom_t) / cfg.sigma_odom_t ** 2,
         huber(r[:, 3:] / cfg.sigma_odom_r) / cfg.sigma_odom_r ** 2,
@@ -479,14 +487,34 @@ def _rows(lo: int, hi: int, d, *ts):
     return tuple(t[lo:hi].to(d).contiguous() for t in ts)
 
 
+def _newton_step(H, g, eye):
+    """dx = -H^-1 g by a damped Cholesky solve in the dtype of ``eye``, the
+    identity of H's size (JAX ``global_opt.py:613-633``). f64: damping 1e-8
+    x max(max diag H, 1) (the reference's double Eigen solve). f32: damping
+    1e-6 x the same and one step of iterative refinement, dx += H^-1 (-g - H
+    dx), computed in f32 as JAX computes it. A failed factorization gives
+    dx = 0, with no host sync."""
+    f64 = eye.dtype == torch.float64
+    Hs, gs = H.to(eye.dtype), g.to(eye.dtype)[:, None]
+    Hs = Hs + (1e-8 if f64 else 1e-6) * torch.clamp(torch.max(torch.diagonal(Hs)), min=1.0) * eye
+    L, info = torch.linalg.cholesky_ex(Hs)
+    ok = (info == 0) & torch.all(torch.isfinite(L))
+    L = torch.where(ok, L, eye)
+    dx = -torch.cholesky_solve(gs, L)
+    if not f64:
+        dx = dx + torch.cholesky_solve(-gs - Hs @ dx, L)
+    return torch.where(ok, dx[:, 0], 0.0)
+
+
 def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, s_bar,
               edge_systems, stats: Optional[dict] = None):
     """Outer GN loop (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934):
     per iteration, every edge system, the dense normal equations with the
-    odometry and scale-prior blocks, a damped f64 Cholesky solve on the
-    device, the left retraction of the free poses. Stops after the
-    iteration whose step norm fell below ``delta_norm`` (one host fetch per
-    iteration). ``stats``, if given, receives the iteration count."""
+    odometry and scale-prior blocks, a damped Cholesky solve on the device
+    (:func:`_newton_step`, f64 or f32 by ``cfg.solve_f64``), the left
+    retraction of the free poses. Stops after the iteration whose step norm
+    fell below ``delta_norm`` (one host fetch per iteration). ``stats``, if
+    given, receives the iteration count."""
     p = T_WC.shape[0]
     p_opt = p - num_fix
     dev = T_WC.device
@@ -499,7 +527,7 @@ def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, 
     info_sp = 1.0 / cfg.sigma_scale_prior ** 2
     diag_idx = torch.arange(p_opt, device=dev) * 7 + 6
     free = torch.arange(p, device=dev) >= num_fix
-    eye = torch.eye(7 * p_opt, dtype=torch.float64, device=dev)
+    eye = torch.eye(7 * p_opt, dtype=torch.float64 if cfg.solve_f64 else torch.float32, device=dev)
 
     def iteration(T_in):
         A_all, gj_all = edge_systems(T_in)
@@ -531,14 +559,7 @@ def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, 
         H[diag_idx, diag_idx] += sp_w
         g[diag_idx] += sp_w * r_s[num_fix:].to(H.dtype)
 
-        # damped Cholesky; a failed factorization gives dx = 0, no host sync
-        Hs, gs = H.to(torch.float64), g.to(torch.float64)
-        Hs = Hs + 1e-8 * torch.clamp(torch.max(torch.diagonal(Hs)), min=1.0) * eye
-        L, info = torch.linalg.cholesky_ex(Hs)
-        ok = (info == 0) & torch.all(torch.isfinite(L))
-        L = torch.where(ok, L, eye)
-        dx = -torch.cholesky_solve(gs[:, None], L)[:, 0]
-        dx = torch.where(ok, dx, 0.0).reshape(p_opt, 7).to(T_in.dtype)
+        dx = _newton_step(H, g, eye).reshape(p_opt, 7).to(T_in.dtype)
 
         T_out = T_in.clone()
         T_out[num_fix:] = lie.sim3_retr(T_in[num_fix:], dx)
@@ -564,12 +585,13 @@ def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: O
     (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934).
 
     T_WC (P, 8) window poses, X (P, HW, 3), C (P, HW, 1), s_bar (P,) scale
-    targets (<= 0 disables). f32 edge systems for f32 inputs, an f64 solve
-    (the reference's double Eigen solve). ``n_active``: the live edge rows
-    (a prefix) as the host knows them, a sizing hint of the kernel (None:
-    all rows). ``placement``: split the edge rows over the backend's devices
-    (each part's kernel sized by its own live rows). Returns the updated
-    (P, 8) poses."""
+    targets (<= 0 disables). f32 edge systems for f32 inputs; the solve in
+    f64 (the reference's double Eigen solve) or, without ``cfg.solve_f64``,
+    in f32 with one refinement step (:func:`_newton_step`). ``n_active``:
+    the live edge rows (a prefix) as the host knows them, a sizing hint of
+    the kernel (None: all rows). ``placement``: split the edge rows over
+    the backend's devices (each part's kernel sized by its own live rows).
+    Returns the updated (P, 8) poses."""
     XiT, w0 = _edge_cache(cfg, X, C, edges)
     jj = edges.jj.to(torch.int32)
 

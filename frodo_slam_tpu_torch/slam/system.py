@@ -34,6 +34,10 @@ the 20-float flags vector plus the tracker's own small fetches; each backend
 solve one small fetch per GN iteration (see global_opt.py), and each plane
 fit one fetch of its region's rows.
 
+``tpu.x64_eval`` (resolved by the entry point, True where absent) picks
+the window solve's numerics, ``BAConfig.solve_f64``: f64, or f32 with one
+refinement step (the real-time configurations).
+
 With a :class:`~..parallel.mesh.Placement` (config ``tpu.placement``, see
 :func:`~..parallel.mesh.default_placement`) the tracker, the keyframe store,
 the PGO, the height prior and the retrieval database stay on ``device``
@@ -188,6 +192,9 @@ class SLAM:
             sigma_depth=float(lo.sigma_depth),
             pixel_border=float(lo.pixel_border),
             depth_eps=float(lo.depth_eps),
+            # tpu.x64_eval as the entry point resolved it; a SLAM built from a
+            # config that leaves it out solves in f64
+            solve_f64=bool(cfg["tpu"].get("x64_eval", True)),
         )
 
         self._n_tok = (img_hw[0] // self.model_cfg.patch_size) * (img_hw[1] // self.model_cfg.patch_size)

@@ -12,7 +12,12 @@ backend grid, as JAX's on its eight virtual devices). Bars: keyframe count and t
 1e-4 (the bar of tests/test_torch_system.py), keyframe PNGs equal, the PLY
 vertex count equal and its points (decoded pointmaps moved by the
 poses) within the decoder's bar of tests/test_model_parity.py, rtol 1e-3
-and atol 1e-4.
+and atol 1e-4. Two more runs over an 8-frame folder take the real-time
+configurations, ``configs/realtime.yaml`` and ``configs/bench_cli.yaml``:
+``tpu.x64_eval: false`` on both sides (JAX's x64-off program, the port's
+f32 window solve with one refinement step), the pipelined frontend, the
+threaded backend for bench_cli.yaml, the configs' head type; realtime.yaml's
+bf16 heads get the bars stated at ``REALTIME_BARS``.
 
 The prefetch loader: frames in order, uploads on the requested device, an
 error in its thread raised at the frame where it happened.
@@ -22,6 +27,7 @@ random route honours ``FRODO_ENTRY_TINY`` and ``FRODO_RANDOM_SHARE_DECODER``;
 ``apply_model_knobs`` reads every config as the JAX package does.
 """
 
+import dataclasses
 import json
 import pathlib
 import types
@@ -40,6 +46,7 @@ from frodo_slam_tpu import main as jmain  # noqa: E402
 from frodo_slam_tpu.config import make_config as j_make_config  # noqa: E402
 from frodo_slam_tpu.models import convert as jconvert  # noqa: E402
 from frodo_slam_tpu.models import mast3r as jmast3r  # noqa: E402
+from frodo_slam_tpu.slam import system as jsystem  # noqa: E402
 from frodo_slam_tpu_torch import loader as tloader  # noqa: E402
 from frodo_slam_tpu_torch import main as tmain  # noqa: E402
 from frodo_slam_tpu_torch.config import make_config as t_make_config  # noqa: E402
@@ -82,12 +89,16 @@ def _frame():
     return rng.integers(0, 255, (48, 64, 3), np.uint8)
 
 
-def _folder(tmp_path):
+def _folder(tmp_path, n=4):
     d = tmp_path / "data" / "seq01"
     d.mkdir(parents=True)
-    for i in range(4):
+    for i in range(n):
         PIL.Image.fromarray(_frame()[:32]).save(d / f"{i:04d}.png")
     return d
+
+
+def _folder8(tmp_path):
+    return _folder(tmp_path, 8)
 
 
 def _tum(tmp_path):
@@ -114,11 +125,30 @@ CASES = {
     "tum_eval_calib": (_tum, "configs/eval_calib.yaml", False, ""),
     "folder_placement_shared": (_folder, "configs/base.yaml", False,
                                 "tpu: {max_keyframes: 8, max_edges: 8, max_odom_edges: 8, placement: shared}\n"),
+    # the real-time configurations: tpu.x64_eval false (the f32 window solve
+    # with one refinement step on both sides), the pipelined frontend, the
+    # config's compute types (REALTIME); bench_cli.yaml adds the threaded
+    # backend and its gate overrides
+    "folder_realtime": (_folder8, "configs/realtime.yaml", False, ""),
+    "folder_bench_cli": (_folder8, "configs/bench_cli.yaml", False, ""),
 }
 # cases whose port run sees eight CPU aliases as its devices, as the JAX run
 # sees the eight virtual devices of tests/conftest.py: tpu.placement shared
 # gives both a (4, 2) backend grid
 PLACED = {"folder_placement_shared"}
+# cases whose loaders apply the config's head type to the tiny model, as the
+# real loaders do (the transformer stays f32, as in the other cases), and
+# record the type each head's DPT computed in. realtime.yaml's bf16 heads
+# round differently in the two packages, so that case holds the keyframe
+# pointmaps as below; its keyframes, their timestamps and the trajectories
+# keep the other cases' bars
+REALTIME = {"folder_realtime", "folder_bench_cli"}
+# realtime.yaml's bars on the median relative difference of the stores'
+# keyframe pointmaps and confidences. Readings (tiny width, 8 frames, CPU):
+# port bf16 heads against JAX bf16 heads 0.01183 and 0.00412; the port's
+# heads decoded in f32 against JAX bf16 heads 0.01468 and 0.00493. The bars
+# lie between, so a port that ran its heads in f32 fails them.
+REALTIME_BARS = {"X_canon": 0.0133, "C": 0.0045}
 
 
 def _tiny_load(real):
@@ -142,8 +172,21 @@ def _run_both(tmp_path, monkeypatch, weights, case):
 
     monkeypatch.setattr(tds, "load_dataset", _tiny_load(tds.load_dataset))
     monkeypatch.setattr(jdata_pkg, "load_dataset", _tiny_load(jdata_pkg.load_dataset))
-    monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, tcfg))
-    monkeypatch.setattr(jloader, "load_mast3r", lambda *a, **k: (params, jcfg))
+    head_dtypes = set()  # what the port's heads computed in
+    if case in REALTIME:
+        def t_load(*a, cfg=None, device=None):
+            c = dataclasses.replace(tcfg, head_dtype=cfg.head_dtype)
+            m = tloader._from_state_dict(tconvert.state_dict_from_jax(params, c), c, torch.device("cpu"))
+            for head in (m.downstream_head1, m.downstream_head2):
+                head.dpt.register_forward_hook(lambda mod, args, out: head_dtypes.add(out.dtype))
+            return m, c
+
+        monkeypatch.setattr(tloader, "load_mast3r", t_load)
+        monkeypatch.setattr(jloader, "load_mast3r", lambda *a, cfg=None: (
+            params, dataclasses.replace(jcfg, head_dtype=cfg.head_dtype)))
+    else:
+        monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, tcfg))
+        monkeypatch.setattr(jloader, "load_mast3r", lambda *a, **k: (params, jcfg))
     created = []
 
     class SpySLAM(tsystem.SLAM):
@@ -152,6 +195,14 @@ def _run_both(tmp_path, monkeypatch, weights, case):
             created.append(self)
 
     monkeypatch.setattr(tsystem, "SLAM", SpySLAM)
+    j_created = []
+
+    class JSpySLAM(jsystem.SLAM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            j_created.append(self)
+
+    monkeypatch.setattr(jsystem, "SLAM", JSpySLAM)
     if case in PLACED:
         monkeypatch.setattr(tmesh, "visible_devices", lambda device=None: [torch.device("cpu")] * 8)
     outs = {}
@@ -162,13 +213,17 @@ def _run_both(tmp_path, monkeypatch, weights, case):
         args = types.SimpleNamespace(
             dataset=str(seq), config=str(cfg), calib=str(calib) if calib else None,
             save_as="cli", no_viz=True, viz=False, weights=None, no_retrieval=True, max_frames=None)
-        outs[name] = {k: (run_dir / v if k != "retrieval" else v) for k, v in mod.run(args, **kw).items()}
-    return outs, created[0], seq
+        x64 = jax.config.jax_enable_x64
+        try:  # the JAX runner sets x64 from tpu.x64_eval
+            outs[name] = {k: (run_dir / v if k != "retrieval" else v) for k, v in mod.run(args, **kw).items()}
+        finally:
+            jax.config.update("jax_enable_x64", x64)
+    return outs, created[0], seq, j_created[0], head_dtypes
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_port_runner_matches_jax_runner(tmp_path, monkeypatch, weights, case):
-    outs, slam, seq = _run_both(tmp_path, monkeypatch, weights, case)
+    outs, slam, seq, jslam, head_dtypes = _run_both(tmp_path, monkeypatch, weights, case)
     j, t = outs["jax"], outs["port"]
     assert t["retrieval"] == j["retrieval"] == "none"
     calibrated = "calib" in case
@@ -178,10 +233,18 @@ def test_port_runner_matches_jax_runner(tmp_path, monkeypatch, weights, case):
     if placed is not None:  # JAX default_mesh("shared") over 8 devices: (4, 2)
         assert (placed.dp, placed.tp, placed.backend_slots) == (4, 2, tuple(range(8))) and len(slam.backend.replicas) == 4
 
+    realtime = case in REALTIME
+    assert slam.ba_cfg.solve_f64 is not realtime and slam.backend.cfg.solve_f64 is not realtime
+    assert (case == "folder_bench_cli") is not slam.single_thread
+
     rows_t, rows_j = np.loadtxt(t["traj"], dtype=str, ndmin=2), np.loadtxt(j["traj"], dtype=str, ndmin=2)
-    n_frames = 8 // 2 if case.startswith("tum") else 4  # eval_calib subsamples by 2
+    # eval_calib subsamples by 2
+    n_frames = 8 // 2 if case.startswith("tum") else 8 if realtime else 4
     assert rows_t.shape == rows_j.shape == (n_frames, 8)  # every frame a keyframe
     assert (rows_t[:, 0] == rows_j[:, 0]).all()
+    bf16 = case == "folder_realtime"
+    if realtime:
+        assert head_dtypes == {torch.bfloat16 if bf16 else torch.float32}, head_dtypes
     np.testing.assert_allclose(rows_t[:, 1:].astype(float), rows_j[:, 1:].astype(float), atol=1e-4)
     assert np.isfinite(rows_t[:, 1:].astype(float)).all()
 
@@ -192,9 +255,21 @@ def test_port_runner_matches_jax_runner(tmp_path, monkeypatch, weights, case):
         np.testing.assert_array_equal(np.asarray(PIL.Image.open(a)), np.asarray(PIL.Image.open(b)))
 
     heads = [pathlib.Path(o["ply"]).read_bytes().split(b"end_header\n", 1) for o in (t, j)]
-    assert heads[0][0] == heads[1][0]
     pts = [np.frombuffer(b, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])["xyz"] for _, b in heads]
-    np.testing.assert_allclose(pts[0], pts[1], rtol=1e-3, atol=1e-4)
+    if bf16:
+        # bf16 heads: a point at the PLY's confidence gate may fall on either
+        # side of it, so the counts agree within 2%, and the stores' keyframe
+        # pointmaps and confidences within REALTIME_BARS
+        assert abs(len(pts[0]) - len(pts[1])) <= 0.02 * len(pts[1])
+        rows = [k % slam.store.capacity for k in range(slam.store.n_total)]
+        for name in ("X_canon", "C"):
+            got = getattr(slam.store, name)[rows].double().numpy()
+            want = np.asarray(getattr(jslam.store, name), np.float64)[rows]
+            rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-3)
+            assert np.median(rel) <= REALTIME_BARS[name], (name, np.median(rel))
+    else:
+        assert heads[0][0] == heads[1][0]
+        np.testing.assert_allclose(pts[0], pts[1], rtol=1e-3, atol=1e-4)
     meta = pathlib.Path(t["traj"]).with_suffix(".meta.json")
     assert meta.exists() and meta.read_text() == pathlib.Path(j["traj"]).with_suffix(".meta.json").read_text()
 

@@ -32,7 +32,7 @@ def session_pkl(tmp_path):
     return p
 
 
-def _cfg_yaml(tmp_path):
+def _cfg_yaml(tmp_path, tpu_extra=""):
     import pathlib
 
     root = pathlib.Path(__file__).resolve().parents[1]
@@ -55,13 +55,14 @@ def _cfg_yaml(tmp_path):
         "tpu:\n"
         "  max_keyframes: 8\n"
         "  max_edges: 8\n"
-        "  max_odom_edges: 8\n")
+        "  max_odom_edges: 8\n" + tpu_extra)
     return p
 
 
-def _run_both(session_pkl, tmp_path, monkeypatch, **extra):
+def _run_both(session_pkl, tmp_path, monkeypatch, tpu_extra="", **extra):
     """JAX ``run_dataset`` and the port's (on the CPU) over the session with
-    the same converted weights; ``extra`` args go to both. Returns (JAX
+    the same converted weights; ``tpu_extra`` yaml lines go into both
+    configs' ``tpu:`` section, ``extra`` args to both runners. Returns (JAX
     SLAM, port SLAM, the devices the port's loader was asked for)."""
     from frodo_slam_tpu import loader as jloader
     from frodo_slam_tpu import run_vio as jrv
@@ -100,11 +101,15 @@ def _run_both(session_pkl, tmp_path, monkeypatch, **extra):
         monkeypatch.setattr(mod, "resize_img", resize64)
         monkeypatch.setattr(sysmod, "resize_img", resize64)
 
-    cfg = _cfg_yaml(tmp_path)
+    cfg = _cfg_yaml(tmp_path, tpu_extra)
     args = types.SimpleNamespace(dataset=str(session_pkl), config=str(cfg), weights=None, no_retrieval=True,
                                  use_odometry=True, wall_clock=False, every_n_frames=1, visualize=False,
                                  **extra)
-    js = jrv.run_dataset(args)
+    x64 = jax.config.jax_enable_x64
+    try:  # the JAX runner sets x64 from tpu.x64_eval
+        js = jrv.run_dataset(args)
+    finally:
+        jax.config.update("jax_enable_x64", x64)
     ts = trv.run_dataset(args, device="cpu")
     return js, ts, devices
 
@@ -140,6 +145,80 @@ def test_run_dataset_use_multiple_gpu_matches_jax(session_pkl, tmp_path, monkeyp
     assert (pl.dp, pl.tp, pl.backend_slots) == (7, 1, tuple(range(1, 8)))
     assert len(ts.backend.replicas) == 7
     _assert_runs_agree(js, ts)
+
+
+def test_run_dataset_x64_off_matches_jax(session_pkl, tmp_path, monkeypatch):
+    """``tpu.x64_eval: false`` in the replay's config: JAX runs its x64-off
+    program, the port the f32 window solve with one refinement step and f32
+    odometry rows; the same bars as the f64 replay."""
+    js, ts, _ = _run_both(session_pkl, tmp_path, monkeypatch, tpu_extra="  x64_eval: false\n")
+    assert ts.cfg["tpu"]["x64_eval"] is False
+    assert not ts.ba_cfg.solve_f64 and not ts.backend.cfg.solve_f64
+    _assert_runs_agree(js, ts)
+
+
+class _RobotDone(Exception):
+    pass
+
+
+@pytest.mark.parametrize("x64_eval", [None, True])
+def test_run_robot_resolves_real_time_numerics(tmp_path, monkeypatch, x64_eval):
+    """The live robot mode defaults to the real-time numerics (JAX
+    ``run_vio.py:123``: ``entry_default=False``), and an explicit
+    ``tpu.x64_eval: true`` wins; the replay of the same config defaults to
+    the f64 solve (``run_vio.py:54``). The robot is a fake that hands over
+    three frames, then stops the loop."""
+    from frodo_slam_tpu_torch import loader as tloader
+    from frodo_slam_tpu_torch import run_vio as trv
+    from frodo_slam_tpu_torch.data import image as timage
+    from frodo_slam_tpu_torch.models import mast3r as tmast3r
+    from frodo_slam_tpu_torch.slam import odometry as todom
+    from frodo_slam_tpu_torch.slam import system as tsystem
+
+    real = timage.resize_img
+    for mod in (timage, tsystem):
+        monkeypatch.setattr(mod, "resize_img", lambda img, size=512, **kw: real(img, 64, **kw))
+    model = tmast3r.init_model(tmast3r.tiny_config(), seed=0, device="cpu")
+    monkeypatch.setattr(tloader, "load_mast3r", lambda *a, **k: (model, model.cfg))
+    frame = np.random.default_rng(0).integers(0, 255, (32, 64, 3), np.uint8)
+    events = []
+
+    class FakeRobot:
+        def __init__(self, robot_type):
+            self.n = 0
+
+        def start(self):
+            events.append("start")
+
+        def stop(self):
+            events.append("stop")
+
+        def get_frame_and_pose(self):
+            self.n += 1
+            if self.n > 3:
+                raise _RobotDone
+            return 0.1 * self.n, frame, np.array([0.05 * self.n, 0, 0, 0, 0, 0, 1], np.float32)
+
+    monkeypatch.setattr(todom, "StraightOrSpinOdometry", FakeRobot)
+    created = []
+
+    class SpySLAM(tsystem.SLAM):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            created.append(self)
+
+    monkeypatch.setattr(tsystem, "SLAM", SpySLAM)
+    extra = "" if x64_eval is None else f"  x64_eval: {str(x64_eval).lower()}\n"
+    args = types.SimpleNamespace(config=str(_cfg_yaml(tmp_path, extra)), weights=None, no_retrieval=True,
+                                 robot_type="mini", use_odometry=True, visualize=False)
+    with pytest.raises(_RobotDone):
+        trv.run_robot(args, device="cpu")
+    slam, = created
+    assert events == ["start", "stop"] and slam.frame_count == 3 and slam.local_opt_mode
+    assert slam.ba_cfg.solve_f64 is bool(x64_eval) and slam.cfg["tpu"]["x64_eval"] is bool(x64_eval)
+    replay = trv._setup(types.SimpleNamespace(config=args.config, weights=None, no_retrieval=True),
+                        "cpu", x64_default=True)[0]
+    assert replay["tpu"]["x64_eval"] is (x64_eval is not False)
 
 
 def test_run_dataset_every_n_and_empty(session_pkl, tmp_path, monkeypatch):

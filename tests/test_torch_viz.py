@@ -118,7 +118,11 @@ def _served_state(port):
 def spy_viewers(monkeypatch):
     """Record every port viewer a runner builds (bound to a free port); at
     each frame gate it waits for its first snapshot, then fetches its own
-    ``/state.json`` and ``/points.bin`` and keeps them in ``served``."""
+    ``/state.json`` and ``/points.bin`` of one snapshot version and keeps
+    them in ``served``. The viewer publishes both under one lock with a new
+    version, so points read between two reads of the same version belong to
+    it; the snapshot thread may publish between the requests, and then the
+    spy reads again."""
     created = []
 
     class SpyViewer(tweb.WebViewer):
@@ -129,8 +133,16 @@ def spy_viewers(monkeypatch):
 
         def wait_if_paused(self, poll_s=0.05):
             assert _settled(lambda: self._version > 0)
-            state = json.loads(_get(self.port, "/state.json"))
-            self.served.append((state, len(_get(self.port, "/points.bin"))))
+            got = []
+
+            def one_version():
+                state = json.loads(_get(self.port, "/state.json"))
+                n_bytes = len(_get(self.port, "/points.bin"))
+                got[:] = [(state, n_bytes)]
+                return json.loads(_get(self.port, "/state.json"))["version"] == state["version"]
+
+            assert _settled(one_version)
+            self.served.append(got[0])
             return super().wait_if_paused(poll_s)
 
     monkeypatch.setattr(tweb, "WebViewer", SpyViewer)
