@@ -98,7 +98,18 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      frames: the track-only regime); its JSON line as it prints it, the FPS
      windows, the runner's numerics (x64 off) and the kernels its process
      launched (counted in the child, zeroed when it starts);
- 17. reloc_main: retrieval loop closure and relocalization through threaded
+ 17. bench_main: ``python -m frodo_slam_tpu_torch.tools.bench`` (the port's
+     counterpart of bench.py: pipelined and async passes, the keyframe
+     policy with a cadence cap of 8, the 64-pose steady-state window solved
+     in f32 at every keyframe, two decorrelated frames through the gate and
+     the fnn fallback) at ViT-L 288x512 in a child process, threaded at 128
+     frames and inline at 32; each tool line printed as it is and held (rc
+     0, FPS > 0, TF32 off, backend work, 2 fnn frames and 2 gate misses,
+     every kernel launched in the timed passes, a 128-row window), the
+     kernels' launches as the tool counts them; then one solve of that
+     window on the card (f32, the ray kernel) against the CPU's plain
+     version within 5e-5, its ms, and the first ray-kernel call of the solve timed beside its bound;
+ 18. reloc_main: retrieval loop closure and relocalization through threaded
      SLAM(use_backend=True, use_reloc=True) at ViT-L 288x512 (shared random
      decoders), the retrieval head at 1024 -> 1024 with nfeat 300 and a
      random codebook of 65,536 words (256 MiB on the card): a camera panning
@@ -111,7 +122,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      against their numpy plain versions at the query's shapes. Per-keyframe
      retrieval ms split into query and insert, relocalization ms, loop
      edges, launches;
- 18. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
+ 19. vio_main: the VIO runner, ``frodo_slam_tpu_torch.run_vio.run_dataset``,
      on a recorded session that this script writes under build/chip_smoke/
      (16 identical 360x640 BGR frames, an odometry pose per frame,
      --use_odometry, every_n_frames 1), ViT-L at 288x512 with shared random
@@ -120,7 +131,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      poses, odometry factors, every kernel launched, no failed backend
      task; per-frame and per-task ms, the PGO's ms and live count, plane
      fits (rows, ms, live targets), peak memory;
- 19. viz_main: the same run with ``--visualize``: the live map viewer on a
+ 20. viz_main: the same run with ``--visualize``: the live map viewer on a
      free port while the backend worker writes the store in place; a client
      thread polls /state.json and /points.bin every 0.2 s, pauses the run
      after frame 4 (no frame for 1 s), steps exactly one frame, resumes, and
@@ -129,7 +140,7 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      edges, and the points numpy recomputes from the store on the host
      (1e-5 relative to max(1, |x|)); no viewer error. Frame ms beside
      vio_main's, snapshots (host ms, bytes fetched), peak memory;
- 20. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
+ 21. codebook_main: ``python -m frodo_slam_tpu_torch.tools.train_codebook``
      (its ``main``) over 224 smooth random 288x512 PNGs it writes under
      build/chip_smoke/codebook/: the random-weight ViT-L encoder and the
      seeded retrieval head (1024 -> 1024, nfeat 300), 67,200 features,
@@ -139,19 +150,20 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      the pickle loads not degraded; a training image is retrieved first.
      Encode ms per image, k-means ms per iteration beside its f32 bound,
      attention launches (24 an image), peak memory;
- 21. synthetic: the port's oracle harness (``python -m
+ 22. synthetic: the port's oracle harness (``python -m
      frodo_slam_tpu_torch.tools.eval_synthetic --device cuda``) in
      subprocesses: the straight row (10 frames at 3 mm), the --per-frame row
      (warm frames) and the loop row (14 frames at 4 mm, with and without
      retrieval) and the VIO row (16 frames at 2 mm, with and without
      odometry), each held to the JAX package's bars; ATEs and launches;
- 22. the script's wall time; the kernels line; the device line (last line
+ 23. the script's wall time; the kernels line; the device line (last line
      of stdout).
 
-On every path (6, 11-21; each run of 11, 12 and 15) the kernel launch
-counters are zeroed just before it and read just after; each path must
-launch each of its kernels (the oracle of 21 replaces the model: no
-attention there; the trainer of 20 runs the encoder only: attention alone;
+On every path (6, 11-22; each run of 11, 12, 15 and 17) the kernel launch
+counters are zeroed just before it and read just after (17: by the tool, in
+its process, around its two timed passes); each path must
+launch each of its kernels (the oracle of 22 replaces the model: no
+attention there; the trainer of 21 runs the encoder only: attention alone;
 the track-only run of 16 makes no keyframe after the first, so no window
 solve and no ray kernel).
 Its peak memory window starts after a garbage collection, and the bytes
@@ -1339,6 +1351,143 @@ def phase_cli_fps_main(frames=64):
 
 
 # ---------------------------------------------------------------------------
+# bench_main: the end-to-end bench through the port
+# ---------------------------------------------------------------------------
+
+# the 64-pose window solved on the card vs on the CPU: the f32 bar of
+# realtime_backend_main's window solve (which read 3.9e-6 at 16 poses)
+BENCH_SOLVE_BAR = RT_SOLVE_BAR[False]
+
+
+def _bench_child(env_extra: dict, timeout: float):
+    """``python -m frodo_slam_tpu_torch.tools.bench`` in a child process with
+    ``env_extra`` set. Returns (its last line, its detail line, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "frodo_slam_tpu_torch.tools.bench"], cwd=ROOT,
+                          env=dict(os.environ, **env_extra), capture_output=True, text=True, timeout=timeout)
+    wall_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) < 2:
+        raise AssertionError(f"bench {env_extra} failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1]), json.loads(lines[-2]), wall_s
+
+
+def _bench_window_solve():
+    """One solve of the tool's 64-pose window (288x512 points, 126 live
+    rows of 128), its poses perturbed with the tool's noise: on the card
+    (f32, the ray kernel; synced, three times) against the CPU's plain
+    version on the same inputs, within BENCH_SOLVE_BAR. The first GN
+    iteration's ray-kernel call is timed alone beside its bound and held
+    against the plain version."""
+    from frodo_slam_tpu_torch.tools import bench as tool
+
+    cfg = make_config()
+    ba = global_opt.BAConfig(max_iters=int(cfg.local_opt.max_iters), pin=1,
+                             delta_norm=float(cfg.local_opt.delta_norm), solve_f64=False)
+    win_cpu = tool.steady_state_window(*tool.window_world(288 * 512, tool.WINDOW))
+    P = win_cpu.poses
+    T0_cpu = lie.sim3_retr(win_cpu.T_true, tool.perturb_noise(3, P))
+    cuda = lambda t: None if t is None else t.to(DEV)  # noqa: E731
+    X, C, T0 = win_cpu.X.to(DEV), win_cpu.C.to(DEV), T0_cpu.to(DEV)
+    edges = global_opt.Edges(*map(cuda, win_cpu.edges))
+    odom, odom_cpu = global_opt.empty_odom_edges(1, device=DEV), global_opt.empty_odom_edges(1)
+    s_bar = torch.full((P,), -1.0)
+    calls = []
+    real = global_opt.ray_edge_systems
+
+    def first_call(*a, **k):  # keep the first call's inputs
+        if not calls:
+            calls.append((a, k))
+        return real(*a, **k)
+
+    global_opt.ray_edge_systems = first_call
+    try:
+        ms, st = [], {}
+        l0 = ba_reduce_kernel.ray_edge_systems.launches
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = global_opt.solve_gn_rays(ba, 1, T0, X, C, edges, odom, s_bar.to(DEV), stats=st)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        launched = (ba_reduce_kernel.ray_edge_systems.launches - l0) // 3
+    finally:
+        global_opt.ray_edge_systems = real
+    st_cpu = {}
+    want = global_opt.solve_gn_rays(ba, 1, T0_cpu, win_cpu.X, win_cpu.C, win_cpu.edges, odom_cpu, s_bar,
+                                    stats=st_cpu)
+    a, k = calls[0]
+    jj, active = a[4], a[5]
+    A, D = kernel_cases.ray_counts(jj, active)
+    E, N = int(jj.shape[0]), int(a[1].shape[2])
+    run32 = lambda: ba_reduce_kernel.ray_edge_systems(*a, **k)  # noqa: E731
+    B, g = run32()
+    d64 = tuple(t.double() for t in a[:4]) + (jj, active)
+    kw = {n: v for n, v in k.items() if n != "n_active"}
+    Bp, gp = ba_reduce_kernel.ray_edge_systems_plain(*d64, **kw)
+    live = active.cpu()
+    ray = dict(E=E, N=N, A=A, D=D, err_f32=max(_rel_err(B, Bp, live), _rel_err(g, gp, live)),
+               max_abs_err_f32=float(max((B.double() - Bp).abs().max(), (g.double() - gp).abs().max())),
+               device_ms=cuda_ms_queued(run32), single_ms=cuda_ms(run32),
+               plain_ms=cuda_ms(lambda: ba_reduce_kernel.ray_edge_systems_plain(*a, **kw), reps=3, warmup=1),
+               **ray_bound(A, D, E, N))
+    del Bp, gp, d64
+    out = dict(poses=P, rows=E, live_rows=A, solve_ms=statistics.median(ms), all_ms=[round(x, 3) for x in ms],
+               iters=st["iters"], iters_cpu=st_cpu["iters"], ray_launches=launched,
+               card_vs_cpu=float((got.cpu() - want).abs().max()), step=float((want - T0_cpu).abs().max()),
+               bar=BENCH_SOLVE_BAR, ray=ray)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bench_main(frames=128, inline_frames=32):
+    """``python -m frodo_slam_tpu_torch.tools.bench`` at ViT-L 288x512 in a
+    child process: threaded at ``frames`` frames, then inline
+    (``FRODO_BENCH_THREADED=0``) at ``inline_frames``. Each tool line is
+    printed as it is, then held: rc 0, a positive FPS, TF32 off, backend
+    work at a keyframe, the two decorrelated frames through the fnn
+    fallback and rejected by the gate, every kernel launched in the timed
+    passes and the ray kernel on the 128-row window. Then one window solve of the tool's
+    world on the card against the CPU (``_bench_window_solve``)."""
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, env, timeout in (("threaded", {"FRODO_BENCH_FRAMES": str(frames), "FRODO_BENCH_THREADED": "1"}, 900),
+                               ("inline", {"FRODO_BENCH_FRAMES": str(inline_frames), "FRODO_BENCH_THREADED": "0"},
+                                600)):
+        line, detail, wall_s = _bench_child(env, timeout)
+        print(json.dumps(line), flush=True)
+        tasks = detail["tasks_pass1"] + detail["tasks_pass2"]
+        r = dict(wall_s=wall_s, launches=line["launches"], kf_frame_idx=detail["kf_frame_idx"],
+                 decorrelated=detail["decorrelated"], launches_pass1=detail["launches_pass1"],
+                 task_ms=[round(t["ms"], 3) for t in tasks], task_iters=[t["iters"] for t in tasks],
+                 median_task_ms=statistics.median(t["ms"] for t in tasks) if tasks else None,
+                 median_frame_ms_pass1=statistics.median(detail["frame_ms_pass1"][detail["warm_cut"]:]),
+                 pass2_s=detail["pass2_s"], allow_tf32=detail["allow_tf32"])
+        emit(f"bench_{name}", **r)
+        runs[name] = r
+        assert line["threaded"] is (name == "threaded") and line["frames"] == int(env["FRODO_BENCH_FRAMES"]) - 2
+        assert line["value"] > 0 and line["synced_fps"] > 0, line
+        assert line["kf_frames"] >= 1 and len(detail["tasks_pass1"]) == len(detail["tasks_pass2"]) \
+            == line["kf_frames"], (line, detail["tasks_pass1"])
+        if (line["fnn_frames"], line["gate_miss_frames"]) != (2, 2):
+            raise AssertionError(f"bench {name}: fnn_frames {line['fnn_frames']}, gate_miss_frames "
+                                 f"{line['gate_miss_frames']} (want 2, 2); decorrelated frames' flags "
+                                 f"{detail['decorrelated']}")
+        assert line["window_rows"] == 128 and line["x64_eval"] is False, line
+        # the f32 heads' convolutions and matmuls ran in f32, as in SLAM
+        assert detail["allow_tf32"] == {"cudnn": False, "matmul": False}, detail["allow_tf32"]
+        for kname in WRAPPERS:
+            assert line["launches"][kname] > 0, f"bench {name} never launched {kname}: {line['launches']}"
+    solve = _bench_window_solve()
+    emit("bench_window_solve", **solve)
+    if not solve["card_vs_cpu"] <= solve["bar"]:
+        raise AssertionError(f"the 64-pose window solve on the card is off the CPU's: {solve}")
+    assert solve["ray_launches"] == solve["iters"] and solve["rows"] == 128, solve
+    assert solve["ray"]["err_f32"] <= 1e-4, solve["ray"]
+    return runs, solve
+
+
+# ---------------------------------------------------------------------------
 # vio_main: the robot VIO runner on a recorded session at full width
 # ---------------------------------------------------------------------------
 
@@ -2029,6 +2178,7 @@ def main():
     rt = phase_realtime_main()
     rt_runs, _ = phase_realtime_backend_main()
     fps = phase_cli_fps_main()
+    bench, bench_solve = phase_bench_main()
     reloc = phase_reloc_main()
     vio = phase_vio_main()
     viz = phase_viz_main(vio)
@@ -2049,6 +2199,8 @@ def main():
                              "realtime_backend_main": [rt_runs[False]["launches"][name],
                                                        rt_runs[True]["launches"][name]],
                              "cli_fps_main": fps["launches"][name],
+                             "bench_main": [bench["threaded"]["launches"][name],
+                                            bench["inline"]["launches"][name]],
                              "reloc_main": reloc["launches"][name],
                              "vio_main": vio["launches"][name],
                              "viz_main": viz["launches"][name],
@@ -2093,6 +2245,8 @@ def main():
         "library_ms": None,
         "per_case": {c: {k: v[k] for k in ("E", "A", "D", "device_ms", "single_ms", "plain_ms", "f64_device_ms",
                                            "bound_ms", "err_f32", "err_f64")} for c, v in per_ray.items()},
+        "bench_window": {k: bench_solve["ray"][k] for k in ("E", "A", "D", "N", "device_ms", "single_ms", "plain_ms",
+                                                             "bound_ms", "bound_by", "err_f32")},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -296,3 +296,77 @@ def decode_and_heads(model: MASt3R, f1, pos1, f2, pos2, img_hw, portrait=None):
         res1, res2 = _transpose_res(res1), _transpose_res(res2)
     return res1, res2
 
+
+
+# ---------------------------------------------------------------------------
+# model FLOP count
+# ---------------------------------------------------------------------------
+
+def _attention_block_flops(n_q: int, n_kv: int, dim: int, cross: bool) -> int:
+    """One attention sublayer: the q, k, v and output projections and the
+    two products with the attention matrix (2 a multiply-add)."""
+    proj = 2 * n_q * dim * dim * 2 + 2 * n_kv * dim * dim * 2 if cross else 2 * n_q * dim * 4 * dim
+    return proj + 2 * 2 * n_q * n_kv * dim
+
+
+def _mlp_flops(n: int, d_in: int, d_hidden: int, d_out: int) -> int:
+    return 2 * n * d_hidden * (d_in + d_out)
+
+
+def _conv_flops(h: int, w: int, c_in: int, c_out: int, k: int = 1, stride: int = 1) -> int:
+    """A k x k convolution, padding k // 2, over an ``h x w`` input. Only the
+    kernel taps that land inside the input count: padding is no work."""
+    def taps(n):  # along one axis, summed over the output positions
+        n_out = (n + 2 * (k // 2) - k) // stride + 1
+        return sum(1 for i in range(n_out) for t in range(k) if 0 <= stride * i - k // 2 + t < n)
+
+    return 2 * taps(h) * taps(w) * c_in * c_out
+
+
+def _dpt_flops(cfg: MASt3RConfig, gh: int, gw: int) -> int:
+    """One DPT head (DPTOutputAdapter_fix, dust3r/heads/dpt_head.py:34-66)
+    on a (gh, gw) token grid: the act_postprocess pyramid, the layer_rn
+    projections, the four refinenet fusions (two residual units each, one
+    without the skip input) and the regression head at full resolution."""
+    L, F = cfg.dpt_layer_dims, cfg.dpt_feature_dim
+    dims = (cfg.enc_embed_dim,) + (cfg.dec_embed_dim,) * 3
+    h4, w4 = (gh - 1) // 2 + 1, (gw - 1) // 2 + 1  # the 3x3 stride-2 conv of act4
+    sizes = [(4 * gh, 4 * gw), (2 * gh, 2 * gw), (gh, gw), (h4, w4)]
+    f = (_conv_flops(gh, gw, dims[0], L[0]) + 2 * gh * gw * L[0] * 16 * L[0]  # 1x1, 4x4 stride-4 deconv
+         + _conv_flops(gh, gw, dims[1], L[1]) + 2 * gh * gw * L[1] * 4 * L[1]  # 1x1, 2x2 stride-2 deconv
+         + _conv_flops(gh, gw, dims[2], L[2])
+         + _conv_flops(gh, gw, dims[3], L[3]) + _conv_flops(gh, gw, L[3], L[3], 3, stride=2))
+    f += sum(_conv_flops(h, w, L[i], F, 3) for i, (h, w) in enumerate(sizes))
+    rcu = lambda h, w: 2 * _conv_flops(h, w, F, F, 3)  # noqa: E731  one residual conv unit
+    for i, (h, w) in enumerate(sizes):  # refinenet i fuses at layer i's size, upsamples 2x
+        f += rcu(h, w) * (1 if i == 3 else 2) + _conv_flops(2 * h, 2 * w, F, F)
+    h1, w1 = 2 * sizes[0][0], 2 * sizes[0][1]
+    return (f + _conv_flops(h1, w1, F, F // 2, 3) + _conv_flops(2 * h1, 2 * w1, F // 2, cfg.dpt_last_dim, 3)
+            + _conv_flops(2 * h1, 2 * w1, cfg.dpt_last_dim, 4))
+
+
+def model_flops(cfg: MASt3RConfig, img_hw) -> Dict[str, int]:
+    """Floating-point operations of one tracked frame's model work, counted
+    from the config's widths and the token count: :func:`encode_image` of
+    one image and :func:`decode_and_heads` of one pair (both decoders, both
+    heads). Every matrix product and convolution counts 2 a multiply-add,
+    every layer of every stack and the attention products included;
+    elementwise work (norms, activations, softmax, RoPE, resizes) is not
+    counted. Keys: ``encode``, ``decoder``, ``dpt``, ``local_features``
+    (both views each) and ``total``."""
+    gh, gw = img_hw[0] // cfg.patch_size, img_hw[1] // cfg.patch_size
+    n, de, dd = gh * gw, cfg.enc_embed_dim, cfg.dec_embed_dim
+    patch = 2 * n * 3 * cfg.patch_size ** 2 * de
+    enc_block = _attention_block_flops(n, n, de, False) + _mlp_flops(n, de, int(cfg.mlp_ratio * de), de)
+    dec_block = (_attention_block_flops(n, n, dd, False) + _attention_block_flops(n, n, dd, True)
+                 + _mlp_flops(n, dd, int(cfg.mlp_ratio * dd), dd))
+    idim = de + dd
+    local = _mlp_flops(n, idim, 4 * idim, (cfg.local_feat_dim + int(cfg.two_confs)) * cfg.patch_size ** 2)
+    out = {
+        "encode": patch + cfg.enc_depth * enc_block,
+        "decoder": 2 * (2 * n * de * dd + cfg.dec_depth * dec_block),
+        "dpt": 2 * _dpt_flops(cfg, gh, gw),
+        "local_features": 2 * local,
+    }
+    out["total"] = sum(out.values())
+    return out

@@ -43,8 +43,8 @@ from .inference import decode_asymmetric, match_symmetric_split
 log = get_logger("backend")
 
 
-def _write_pair_rows(edges: Edges, r0: int, i: int, j: int, idx_i2j, idx_j2i,
-                     valid_j, valid_i, Qj, Qi, cache=None) -> Edges:
+def write_pair_rows(edges: Edges, r0: int, i: int, j: int, idx_i2j, idx_j2i,
+                    valid_j, valid_i, Qj, Qi, cache=None) -> Edges:
     """Write both directed rows of one pair in place. ``cache``: optional
     (XiT_r0, w0_r0, XiT_r1, w0_r1) from :func:`_ingest_pairs`, the edge's
     pose-independent solver inputs (see :class:`Edges`)."""
@@ -111,6 +111,41 @@ def _ingest_pairs(q_conf_gate, q_conf_ba, c_conf, X_i, C_i, n_i, X_j, C_j, n_j,
     fracs = torch.stack([valid_j.float().mean(1), valid_i.float().mean(1)], dim=-1)
     return (Qj[..., None], Qi[..., None], valid_j[..., None], valid_i[..., None],
             fracs, XiT_r0, w0_r0, XiT_r1, w0_r1)
+
+
+def consecutive_half_rows(model, match_cfg, img_hw, gates, feat_i, pos_i, feat_j, pos_j, half,
+                          side_i, side_j):
+    """The two rows of the consecutive edge (i, j), reusing the tracker's
+    half of the pair decode (``TrackResult.pair_half`` of the frame that
+    became keyframe ``j``: decode(j, i) and its match). Only decode(i, j)
+    and one match remain. With ``seed_consecutive`` (default on) that match
+    is seeded with the inverse of the tracker's match and keeps only
+    genuinely seeded pixels.
+
+    ``gates``: (Q_conf gate, BA Q_conf, C_conf) of :func:`_ingest_pairs`;
+    ``side_*``: (X (1, HW, 3), C (1, HW, 1), n (1,)) of keyframe i / j.
+    Returns (idx_i2j, idx_j2i, valid_j, valid_i, Qj, Qi, cache), the pair's
+    rows as :func:`write_pair_rows` takes them."""
+    idx_j2i, valid_match_i, Qjj, Qij = half
+    hw = img_hw[0] * img_hw[1]
+    res11, res21 = decode_asymmetric(model, feat_i, pos_i, feat_j, pos_j, img_hw)
+    mc = dict(match_cfg)
+    if bool(mc.get("seed_consecutive", True)):
+        idx_seed, seeded = _invert_match(idx_j2i, valid_match_i)
+        idx_i2j, valid_match_j = matching.match(
+            res11["pts3d"], res21["pts3d"], res11["desc"], res21["desc"], idx_seed,
+            **matching.seed_match_cfg(mc))
+        valid_match_j = valid_match_j & seeded[..., None]
+    else:
+        cold_cfg, _ = matching.split_match_cfg(mc)
+        idx_i2j, valid_match_j = matching.match(
+            res11["pts3d"], res21["pts3d"], res11["desc"], res21["desc"], None, **cold_cfg)
+    flat1 = lambda x: x.reshape(1, hw, 1)  # noqa: E731
+    (Qj, Qi, valid_j, valid_i, _fracs, XiT_r0, w0_r0, XiT_r1, w0_r1) = _ingest_pairs(
+        *gates, *side_i, *side_j, idx_i2j, idx_j2i, valid_match_j, valid_match_i,
+        flat1(res11["desc_conf"]), Qjj, flat1(res21["desc_conf"]), Qij)
+    return (idx_i2j[0], idx_j2i[0], valid_j[0, :, 0], valid_i[0, :, 0], Qj[0, :, 0], Qi[0, :, 0],
+            (XiT_r0[0], w0_r0[0], XiT_r1[0], w0_r1[0]))
 
 
 def _shift_pair_rows(edges: Edges, pair_idx: int) -> Edges:
@@ -239,36 +274,19 @@ class BackendGraph:
 
     @torch.no_grad()
     def add_consecutive_half(self, store: KeyframeStore, i: int, j: int, half) -> bool:
-        """Insert the consecutive edge (i, j), reusing the tracker's half of
-        the pair decode (``TrackResult.pair_half`` of the frame that became
-        keyframe ``j``: decode(j, i) and its match). Only decode(i, j) and
-        one match remain. With ``seed_consecutive`` (default on) that match
-        is seeded with the inverse of the tracker's match and keeps only
-        genuinely seeded pixels. ``half`` may live on the tracker's device."""
-        idx_j2i, valid_match_i, Qjj, Qij = (t.to(self.device) for t in half)
+        """Insert the consecutive edge (i, j) from the tracker's half of the
+        pair decode (:func:`consecutive_half_rows`). ``half`` may live on the
+        tracker's device."""
         slot_i = int(i) % store.capacity
         slot_j = int(j) % store.capacity
         pos = store.pos.to(self.device)[None]
         feat, = self._gather([slot_i, slot_j], store.feat)
-        res11, res21 = decode_asymmetric(self.replicas[0], feat[:1], pos, feat[1:], pos, self.img_hw)
-        mc = dict(self.match_cfg)
-        if bool(mc.get("seed_consecutive", True)):
-            idx_seed, seeded = _invert_match(idx_j2i, valid_match_i)
-            idx_i2j, valid_match_j = matching.match(
-                res11["pts3d"], res21["pts3d"], res11["desc"], res21["desc"], idx_seed,
-                **matching.seed_match_cfg(mc))
-            valid_match_j = valid_match_j & seeded[..., None]
-        else:
-            cold_cfg, _ = matching.split_match_cfg(mc)
-            idx_i2j, valid_match_j = matching.match(
-                res11["pts3d"], res21["pts3d"], res11["desc"], res21["desc"], None, **cold_cfg)
-        flat1 = lambda x: x.reshape(1, self.hw, 1)  # noqa: E731
-        (Qj, Qi, valid_j, valid_i, _fracs, XiT_r0, w0_r0, XiT_r1, w0_r1) = self._ingest(
-            store, [slot_i], [slot_j], idx_i2j, idx_j2i, valid_match_j, valid_match_i,
-            flat1(res11["desc_conf"]), Qjj, flat1(res21["desc_conf"]), Qij)
-        self._insert_pair(i, j, idx_i2j[0], idx_j2i[0], valid_j[0, :, 0], valid_i[0, :, 0],
-                          Qj[0, :, 0], Qi[0, :, 0],
-                          cache=(XiT_r0[0], w0_r0[0], XiT_r1[0], w0_r1[0]))
+        *rows, cache = consecutive_half_rows(
+            self.replicas[0], self.match_cfg, self.img_hw, (self.Q_conf, self.cfg.Q_conf, self.cfg.C_conf),
+            feat[:1], pos, feat[1:], pos, tuple(t.to(self.device) for t in half),
+            self._gather([slot_i], store.X_canon, store.C, store.N),
+            self._gather([slot_j], store.X_canon, store.C, store.N))
+        self._insert_pair(i, j, *rows, cache=cache)
         return True
 
     def _insert_pair(self, i, j, idx_i2j, idx_j2i, valid_j, valid_i, Qj, Qi, cache=None):
@@ -280,8 +298,8 @@ class BackendGraph:
             self._shift_rows(evict)
         pair_slot = len(self._pairs)
         self._pairs.append((int(i), int(j)))
-        _write_pair_rows(self.edges, 2 * pair_slot, int(i), int(j), idx_i2j, idx_j2i,
-                         valid_j, valid_i, Qj, Qi, cache=cache)
+        write_pair_rows(self.edges, 2 * pair_slot, int(i), int(j), idx_i2j, idx_j2i,
+                        valid_j, valid_i, Qj, Qi, cache=cache)
 
     def _pick_evict(self) -> int:
         """Under capacity pressure evict the oldest CONSECUTIVE pair that

@@ -37,6 +37,8 @@ VIZ_MODULES = ["frodo_slam_tpu_torch.viz", "frodo_slam_tpu_torch.viz.web",
 # multi-card placement and its dry run
 PLACEMENT_MODULES = ["frodo_slam_tpu_torch.parallel", "frodo_slam_tpu_torch.parallel.mesh",
                      "frodo_slam_tpu_torch.tools.dryrun_multichip"]
+# the end-to-end bench (the port's counterpart of bench.py)
+BENCH_MODULES = ["frodo_slam_tpu_torch.tools.bench"]
 # functions that may import OpenCV in their bodies: the live robot poller,
 # and the one import of the video decoder and the cameras
 CV2_FUNCTIONS = {"frodo_slam_tpu_torch/slam/odometry.py": {"yaw_from_rays", "_loop"},
@@ -99,6 +101,10 @@ def test_viz_modules_are_covered():
 
 def test_placement_modules_are_covered():
     assert set(PLACEMENT_MODULES) <= set(MODULES)
+
+
+def test_bench_modules_are_covered():
+    assert set(BENCH_MODULES) <= set(MODULES)
 
 
 def test_importing_the_viewer_loads_no_matplotlib_and_no_opencv():
