@@ -1,0 +1,13 @@
+"""The benchmark's own tests: ``python -m pytest slambench/tests -q`` from
+the repository's root (the card's tests: ``-m card`` on the card)."""
+
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips without one")
