@@ -33,6 +33,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn as nn
 
+from ..utils import spans
 from ..utils.device import resolve_device
 from . import dpt as dpt_mod
 from .layers import (Block, DecoderBlock, LayerNorm, Mlp, PatchEmbed, layernorm, linear, split_attention,
@@ -235,12 +236,13 @@ def encode_image(model: MASt3R, img: torch.Tensor, portrait=None):
     portrait = cfg.portrait if portrait is None else portrait
     if portrait:
         img = img.transpose(1, 2)
-    x, pos = model.patch_embed(img.to(cfg.dtype))
-    pos = pos.to(torch.int32)
-    for blk in model.enc_blocks:
-        x = blk(x, pos)
-    x = layernorm(model.enc_norm, x)
-    return x.float(), pos
+    with spans.span("model.encode"):
+        x, pos = model.patch_embed(img.to(cfg.dtype))
+        pos = pos.to(torch.int32)
+        for blk in model.enc_blocks:
+            x = blk(x, pos)
+        x = layernorm(model.enc_norm, x)
+        return x.float(), pos
 
 
 @torch.no_grad()
@@ -285,16 +287,17 @@ def decode_and_heads(model: MASt3R, f1, pos1, f2, pos2, img_hw, portrait=None):
     maps in the landscape storage layout ``img_hw``."""
     cfg = model.cfg
     portrait = cfg.portrait if portrait is None else portrait
-    hooks1, hooks2 = decode(model, f1, pos1, f2, pos2)
     h, w = img_hw
     if portrait:
         h, w = w, h
     grid = (h // cfg.patch_size, w // cfg.patch_size)
-    res1 = _head(model.downstream_head1, cfg, hooks1, grid)
-    res2 = _head(model.downstream_head2, cfg, hooks2, grid)
-    if portrait:
-        res1, res2 = _transpose_res(res1), _transpose_res(res2)
-    return res1, res2
+    with spans.span("model.decode"):
+        hooks1, hooks2 = decode(model, f1, pos1, f2, pos2)
+        res1 = _head(model.downstream_head1, cfg, hooks1, grid)
+        res2 = _head(model.downstream_head2, cfg, hooks2, grid)
+        if portrait:
+            res1, res2 = _transpose_res(res1), _transpose_res(res2)
+        return res1, res2
 
 
 

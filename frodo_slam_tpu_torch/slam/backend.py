@@ -32,6 +32,7 @@ import torch
 
 from ..ops import matching
 from ..ops.geometry import constrain_points_to_ray
+from ..utils import spans
 from ..utils.log import get_logger
 from ..parallel.mesh import backend_replicas
 from . import frame as frame_mod
@@ -417,15 +418,17 @@ class BackendGraph:
         (global_opt.py:226-286). Returns ``(uniq, p, T_new)`` without writing
         back, so a threaded caller can merge into a store that advanced
         meanwhile; None when there is nothing to optimize."""
-        win = self._build_window(store, s_bar)
+        with spans.span("backend.window"):
+            win = self._build_window(store, s_bar)
         if win is None:
             return None
         uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
         stats: dict = {}
         # the live rows are the first 2 * len(_pairs): the kernel's sizing hint
-        T_new = solve_gn_rays(self.cfg, self.cfg.pin, T_win, X_win, C_win, edges_win,
-                              odom_win, sb, stats=stats, n_active=2 * len(self._pairs),
-                              placement=self.placement)
+        with spans.span("backend.solve_rays"):
+            T_new = solve_gn_rays(self.cfg, self.cfg.pin, T_win, X_win, C_win, edges_win,
+                                  odom_win, sb, stats=stats, n_active=2 * len(self._pairs),
+                                  placement=self.placement)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 
@@ -434,15 +437,17 @@ class BackendGraph:
         """Calibrated pixel/log-depth window solve (global_opt.py:288-341):
         the window's points are constrained to their pixel rays first
         (:298-300). Same return contract as :meth:`solve_window_rays`."""
-        win = self._build_window(store, s_bar)
-        if win is None:
-            return None
-        uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
-        K = K.to(self.device)
-        X_win = constrain_points_to_ray(self.img_hw, X_win, K)
+        with spans.span("backend.window"):
+            win = self._build_window(store, s_bar)
+            if win is None:
+                return None
+            uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
+            K = K.to(self.device)
+            X_win = constrain_points_to_ray(self.img_hw, X_win, K)
         stats: dict = {}
-        T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, K,
-                               edges_win, odom_win, sb, stats=stats, placement=self.placement)
+        with spans.span("backend.solve_calib"):
+            T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, K,
+                                   edges_win, odom_win, sb, stats=stats, placement=self.placement)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 

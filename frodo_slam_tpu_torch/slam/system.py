@@ -64,6 +64,7 @@ from ..config import Config
 from ..data.image import resize_img
 from ..models import mast3r
 from ..ops import lie
+from ..utils import spans
 from ..utils.device import indexed, resolve_device, set_f32_contract
 from ..utils.log import get_logger
 from . import frame as frame_mod
@@ -76,6 +77,9 @@ from .pgo import apply_pgo_scale_, make_pose_graph, pgo_add_frame, pgo_optimize
 from .tracker import TrackingCfg, track_step
 
 log = get_logger("slam")
+
+LOCK_WAIT = "frame.lock_wait_ns"  # the frontend's waits for _backend_lock
+TASK_LOCK_WAIT = "backend.lock_wait_ns"  # a backend task's
 
 
 def preprocess_image(img: np.ndarray, img_hw: Tuple[int, int], portrait: bool) -> np.ndarray:
@@ -386,8 +390,9 @@ class SLAM:
         if isinstance(img, torch.Tensor) and img.dim() == 4:
             dev_img = img.to(self.device)  # pre-uploaded by a loader
         else:
-            host = np.ascontiguousarray(self.preprocess(np.asarray(img)), dtype=np.float32)
-            dev_img = torch.from_numpy(host).to(self.device, non_blocking=True)
+            with spans.span("frame.preprocess"):
+                host = np.ascontiguousarray(self.preprocess(np.asarray(img)), dtype=np.float32)
+                dev_img = torch.from_numpy(host).to(self.device, non_blocking=True)
         feat, pos = mast3r.encode_image(self.model, dev_img)
         return dev_img, feat, pos
 
@@ -409,7 +414,7 @@ class SLAM:
             self.tcfg.filtering_mode, self.tcfg.filtering_score,
         )
         frame = dataclasses.replace(frame, X_canon=Xn, C=Cn, N=Nn, N_updates=Un)
-        with self._backend_lock:
+        with spans.held(self._backend_lock, LOCK_WAIT):
             self.active_kf = frame
             self.store = frame_mod.kf_append(self.store, frame)
         self.kf_timestamps.append(timestamp)
@@ -469,104 +474,107 @@ class SLAM:
     def _dispatch_track(self, img, timestamp, odom_pose, next_img):
         """Device half of a frame: encode + tracking work. Returns the pending
         tuple for :meth:`_finalize_track`, or None for an INIT frame."""
-        T_WC = torch.as_tensor(self.current_T_WC, dtype=torch.float32).to(self.device)
-        frame = self._make_frame(img, T_WC)
+        with spans.span("frame.dispatch", frame=self.frame_count):
+            T_WC = torch.as_tensor(self.current_T_WC, dtype=torch.float32).to(self.device)
+            frame = self._make_frame(img, T_WC)
 
-        if self.mode == Mode.INIT:
+            if self.mode == Mode.INIT:
+                if next_img is not None:
+                    self._encode_cache = (next_img, *self._encode_frame(next_img))
+                self.init_tracking(frame, timestamp)
+                self.last_odom_pose = odom_pose
+                self.frame_count += 1
+                return None
+
+            with spans.held(self._backend_lock, LOCK_WAIT):  # a backend merge may replace active_kf
+                prev_kf = self.active_kf
+                kf_next, fused, res = track_step(
+                    self.model, self.tcfg, self.match_cfg, self.img_hw,
+                    self.active_kf, frame, self._idx_f2k, self.K,
+                )
+                self.active_kf = kf_next
+            self._idx_f2k = res.idx_f2k
+            self.last_track = res
             if next_img is not None:
                 self._encode_cache = (next_img, *self._encode_frame(next_img))
-            self.init_tracking(frame, timestamp)
-            self.last_odom_pose = odom_pose
-            self.frame_count += 1
-            return None
-
-        with self._backend_lock:  # a backend merge may replace active_kf
-            prev_kf = self.active_kf
-            kf_next, fused, res = track_step(
-                self.model, self.tcfg, self.match_cfg, self.img_hw,
-                self.active_kf, frame, self._idx_f2k, self.K,
-            )
-            self.active_kf = kf_next
-        self._idx_f2k = res.idx_f2k
-        self.last_track = res
-        if next_img is not None:
-            self._encode_cache = (next_img, *self._encode_frame(next_img))
-        return (frame, prev_kf, fused, res, timestamp, odom_pose)
+            return (frame, prev_kf, fused, res, timestamp, odom_pose)
 
     def _finalize_track(self, pend):
         """Host half: ONE flags fetch, then all bookkeeping (keyframe
         write-back/append, loss/reset, backend task)."""
-        frame, prev_kf, fused, res, timestamp, odom_pose = pend
-        flags = res.flags.cpu().numpy()  # ONE fetch serves every flag below
-        ok = bool(flags[1] > 0)
-        new_kf = bool(flags[2] > 0)
-        used_fnn = bool(flags[19] > 0)
-        if ok and not new_kf and self._kf_sync_per_frame:
-            with self._backend_lock:
-                frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), self.active_kf)
-                self._hp_invalidate(len(self.kf_timestamps) - 1)
-        if new_kf:
-            with self._backend_lock:
-                # sync the outgoing keyframe's fused pointmap into its slot
-                # (the reference writes it back every frame,
-                # tracker.py:325-328; here at keyframe rate like the JAX
-                # package), then append the new keyframe, both in place.
-                # The outgoing keyframe's stored pointmap just changed: its
-                # cached plane fit is stale.
-                frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), prev_kf)
-                self._hp_invalidate(len(self.kf_timestamps) - 1)
-                self.store = frame_mod.kf_append(self.store, fused)
-
-        if not ok:
-            self._idx_f2k = None
-            self.loss_track_counter += 1
-            log.info("tracking failed at t=%.3f (consecutive losses: %d, "
-                     "match_frac=%.4f)", timestamp, self.loss_track_counter,
-                     float(flags[0]))
-            relocalized = False
-            if (self.use_reloc and self.retrieval is not None and self.backend is not None
-                    and len(self.kf_timestamps) > 1):
-                relocalized = self._relocalize(frame, timestamp)
-            if relocalized:
-                log.info("relocalized at t=%.3f", timestamp)
-                self.loss_track_counter = 0
-                ok = True
-            elif self.loss_track_counter >= int(self.cfg.tracking.new_map_after_loss_track_N):
-                self.reset()
-                self.init_tracking(frame, timestamp)
-                self.frame_count += 1
-                return False, self.current_T_WC, True
-        else:
-            self.loss_track_counter = 0
-            self.current_T_WC = flags[3:11].copy()
+        # the pending frame's id: frame_count counts a frame when it is finalized
+        with spans.span("frame.finalize", frame=self.frame_count):
+            frame, prev_kf, fused, res, timestamp, odom_pose = pend
+            flags = res.flags.cpu().numpy()  # ONE fetch serves every flag below
+            ok = bool(flags[1] > 0)
+            new_kf = bool(flags[2] > 0)
+            used_fnn = bool(flags[19] > 0)
+            if ok and not new_kf and self._kf_sync_per_frame:
+                with spans.held(self._backend_lock, LOCK_WAIT):
+                    frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), self.active_kf)
+                    self._hp_invalidate(len(self.kf_timestamps) - 1)
             if new_kf:
-                self.kf_timestamps.append(timestamp)
-                self._capture_kf_image(fused)
-                self._idx_f2k = None
-                odom_factor = None
-                if (odom_pose is not None and self.last_odom_pose is not None
-                        and len(self.kf_timestamps) > 1):
-                    delta = lie.se3_mul(
-                        lie.se3_inv(torch.as_tensor(np.asarray(self.last_odom_pose)[:7],
-                                                    dtype=torch.float32)),
-                        torch.as_tensor(np.asarray(odom_pose)[:7], dtype=torch.float32))
-                    n = len(self.kf_timestamps)
-                    odom_factor = (n - 2, n - 1, delta.numpy())
-                    self.last_odom_pose = odom_pose
-                if self.local_opt_mode and odom_pose is not None:
-                    self._pgo_step(odom_pose)
-                if self.use_backend:
-                    # consecutive-edge half reuse: hand the backend the
-                    # tracker's direction of this pair's decode + match, not
-                    # when the fnn fallback fired (the raw projective match
-                    # was too sparse: the backend cold-matches both)
-                    half = res.pair_half if self._half_reuse and not used_fnn else None
-                    self._run_backend(len(self.kf_timestamps) - 1, odom_factor, half)
-        if odom_pose is not None and self.last_odom_pose is None:
-            self.last_odom_pose = odom_pose
+                with spans.held(self._backend_lock, LOCK_WAIT):
+                    # sync the outgoing keyframe's fused pointmap into its slot
+                    # (the reference writes it back every frame,
+                    # tracker.py:325-328; here at keyframe rate like the JAX
+                    # package), then append the new keyframe, both in place.
+                    # The outgoing keyframe's stored pointmap just changed: its
+                    # cached plane fit is stale.
+                    frame_mod.kf_write_pointmap(self.store, self.store.last_slot(), prev_kf)
+                    self._hp_invalidate(len(self.kf_timestamps) - 1)
+                    self.store = frame_mod.kf_append(self.store, fused)
 
-        self.frame_count += 1
-        return ok, self.current_T_WC, new_kf
+            if not ok:
+                self._idx_f2k = None
+                self.loss_track_counter += 1
+                log.info("tracking failed at t=%.3f (consecutive losses: %d, "
+                         "match_frac=%.4f)", timestamp, self.loss_track_counter,
+                         float(flags[0]))
+                relocalized = False
+                if (self.use_reloc and self.retrieval is not None and self.backend is not None
+                        and len(self.kf_timestamps) > 1):
+                    relocalized = self._relocalize(frame, timestamp)
+                if relocalized:
+                    log.info("relocalized at t=%.3f", timestamp)
+                    self.loss_track_counter = 0
+                    ok = True
+                elif self.loss_track_counter >= int(self.cfg.tracking.new_map_after_loss_track_N):
+                    self.reset()
+                    self.init_tracking(frame, timestamp)
+                    self.frame_count += 1
+                    return False, self.current_T_WC, True
+            else:
+                self.loss_track_counter = 0
+                self.current_T_WC = flags[3:11].copy()
+                if new_kf:
+                    self.kf_timestamps.append(timestamp)
+                    self._capture_kf_image(fused)
+                    self._idx_f2k = None
+                    odom_factor = None
+                    if (odom_pose is not None and self.last_odom_pose is not None
+                            and len(self.kf_timestamps) > 1):
+                        delta = lie.se3_mul(
+                            lie.se3_inv(torch.as_tensor(np.asarray(self.last_odom_pose)[:7],
+                                                        dtype=torch.float32)),
+                            torch.as_tensor(np.asarray(odom_pose)[:7], dtype=torch.float32))
+                        n = len(self.kf_timestamps)
+                        odom_factor = (n - 2, n - 1, delta.numpy())
+                        self.last_odom_pose = odom_pose
+                    if self.local_opt_mode and odom_pose is not None:
+                        self._pgo_step(odom_pose)
+                    if self.use_backend:
+                        # consecutive-edge half reuse: hand the backend the
+                        # tracker's direction of this pair's decode + match, not
+                        # when the fnn fallback fired (the raw projective match
+                        # was too sparse: the backend cold-matches both)
+                        half = res.pair_half if self._half_reuse and not used_fnn else None
+                        self._run_backend(len(self.kf_timestamps) - 1, odom_factor, half)
+            if odom_pose is not None and self.last_odom_pose is None:
+                self.last_odom_pose = odom_pose
+
+            self.frame_count += 1
+            return ok, self.current_T_WC, new_kf
 
     def _pgo_step(self, odom_pose):
         """Add the new keyframe's tracked pose and odometry pose to the
@@ -581,71 +589,79 @@ class SLAM:
         pgo_add_frame(self.pgo, torch.as_tensor(self.current_T_WC),
                       torch.as_tensor(np.asarray(odom_pose)[:7]))
         _, s, pgo_ok = pgo_optimize(self.pgo)
-        with self._backend_lock:
+        with spans.held(self._backend_lock, LOCK_WAIT):
             apply_pgo_scale_(self.store.T_WC, self.store.n_size, s, pgo_ok)
 
     # -- backend ---------------------------------------------------------------
 
     @torch.no_grad()
-    def _backend_step(self, idx: int, odom_factor, pair_half=None):
+    def _backend_step(self, idx: int, odom_factor, pair_half=None, cause=None, queued_ns=None):
         """One backend task (run_backend loop body, vio.py:109-157).
 
         Threaded, the task reads a copy of the store taken under the lock and
         merges the solved window poses back under the lock at the end, so the
         frontend keeps tracking through the decode, match and solve. In
         single_thread mode the same code runs on the frontend thread on the
-        live store (the serialized eval contract)."""
-        with self._backend_lock:
-            store = self.store if self.single_thread else frame_mod.kf_snapshot(
-                self.store, device=self.backend.device)
-            epoch, hp_gen = self._map_epoch, self._hp_gen
+        live store (the serialized eval contract).
 
-        kf_set = {idx - 1} if idx >= 1 else set()
-        if self.retrieval is not None:
-            # the keyframes retrieved for this one become loop-closure edges
-            feat = store.feat[idx % store.capacity][None].to(self.device)
-            kf_set.update(self.retrieval.update(
-                feat, add_after_query=True, k=int(self.cfg.retrieval.k),
-                min_thresh=float(self.cfg.retrieval.min_thresh), kf_id=idx))
-            kf_set.discard(idx)
-        if pair_half is not None and idx >= 1 and (idx - 1) in kf_set:
-            # the tracker already decoded and matched its direction of this
-            # consecutive pair: only the missing direction is computed
-            self.backend.add_consecutive_half(store, idx - 1, idx, pair_half)
-            kf_set.discard(idx - 1)
-        kf_list = sorted(kf_set)
-        if kf_list:
-            self.backend.add_factors(store, kf_list, [idx] * len(kf_list))
-        if odom_factor is not None:
-            self.backend.add_odometry_factors(*odom_factor)
+        ``cause``: the frame whose tracking made keyframe ``idx``;
+        ``queued_ns``: when the task was queued (:func:`..utils.spans.stamp`)."""
+        with spans.span("backend.task", frame=cause, kf=idx, cause=cause, queued_ns=queued_ns):
+            with spans.held(self._backend_lock, TASK_LOCK_WAIT):
+                if self.single_thread:
+                    store = self.store
+                else:
+                    with spans.span("backend.snapshot"):
+                        store = frame_mod.kf_snapshot(self.store, device=self.backend.device)
+                epoch, hp_gen = self._map_epoch, self._hp_gen
 
-        win = self._solve_window(store, self._height_prior_s_bar(store, hp_gen))
-        if win is None:
-            return
-        uniq, p, T_new = win
+            with spans.span("backend.pairs"):
+                kf_set = {idx - 1} if idx >= 1 else set()
+                if self.retrieval is not None:
+                    # the keyframes retrieved for this one become loop-closure edges
+                    feat = store.feat[idx % store.capacity][None].to(self.device)
+                    kf_set.update(self.retrieval.update(
+                        feat, add_after_query=True, k=int(self.cfg.retrieval.k),
+                        min_thresh=float(self.cfg.retrieval.min_thresh), kf_id=idx))
+                    kf_set.discard(idx)
+                if pair_half is not None and idx >= 1 and (idx - 1) in kf_set:
+                    # the tracker already decoded and matched its direction of this
+                    # consecutive pair: only the missing direction is computed
+                    self.backend.add_consecutive_half(store, idx - 1, idx, pair_half)
+                    kf_set.discard(idx - 1)
+                kf_list = sorted(kf_set)
+                if kf_list:
+                    self.backend.add_factors(store, kf_list, [idx] * len(kf_list))
+                if odom_factor is not None:
+                    self.backend.add_odometry_factors(*odom_factor)
 
-        with self._backend_lock:
-            if epoch != self._map_epoch:
-                return  # the map was reset while we solved: drop the result
-            pin = self.ba_cfg.pin
-            live_total = self.store.n_total
-            live_oldest = max(0, live_total - self.store.capacity)
-            free = [(n, k) for n, k in enumerate(uniq[:p])
-                    if n >= pin and live_oldest <= k < live_total]
-            if free:
-                rows = torch.as_tensor([n for n, _ in free], device=T_new.device)
-                frame_mod.kf_update_T_WCs(self.store, T_new[rows],
-                                          [k % self.store.capacity for _, k in free])
-            # the backend moved the newest keyframe's pose: refresh the
-            # streaming active-KF state so the next track uses it. Threaded,
-            # the newest live keyframe may postdate the copy; merge only when
-            # it was part of the solved window.
-            n_latest = len(self.kf_timestamps) - 1
-            if n_latest in uniq[:p]:
-                w = uniq.index(n_latest)
-                self.active_kf = dataclasses.replace(self.active_kf, T_WC=T_new[w].to(self.device))
-                if self.single_thread or n_latest == idx:
-                    self.current_T_WC = T_new[w].cpu().numpy()
+            win = self._solve_window(store, self._height_prior_s_bar(store, hp_gen))
+            if win is None:
+                return
+            uniq, p, T_new = win
+
+            with spans.span("backend.merge"), spans.held(self._backend_lock, TASK_LOCK_WAIT):
+                if epoch != self._map_epoch:
+                    return  # the map was reset while we solved: drop the result
+                pin = self.ba_cfg.pin
+                live_total = self.store.n_total
+                live_oldest = max(0, live_total - self.store.capacity)
+                free = [(n, k) for n, k in enumerate(uniq[:p])
+                        if n >= pin and live_oldest <= k < live_total]
+                if free:
+                    rows = torch.as_tensor([n for n, _ in free], device=T_new.device)
+                    frame_mod.kf_update_T_WCs(self.store, T_new[rows],
+                                              [k % self.store.capacity for _, k in free])
+                # the backend moved the newest keyframe's pose: refresh the
+                # streaming active-KF state so the next track uses it. Threaded,
+                # the newest live keyframe may postdate the copy; merge only when
+                # it was part of the solved window.
+                n_latest = len(self.kf_timestamps) - 1
+                if n_latest in uniq[:p]:
+                    w = uniq.index(n_latest)
+                    self.active_kf = dataclasses.replace(self.active_kf, T_WC=T_new[w].to(self.device))
+                    if self.single_thread or n_latest == idx:
+                        self.current_T_WC = T_new[w].cpu().numpy()
 
     def _solve_window(self, store, s_bar=None):
         """The window solve of a backend task: calibrated pixel/log-depth GN
@@ -707,8 +723,9 @@ class SLAM:
         return s_bar
 
     def _run_backend(self, idx: int, odom_factor, pair_half=None):
+        # the task's cause is the frame being finalized (frame_count)
         if self.single_thread:
-            self._backend_step(idx, odom_factor, pair_half)
+            self._backend_step(idx, odom_factor, pair_half, self.frame_count)
             return
         # never block the frontend: enqueue and return (vio.py:333-343)
         if self._backend_tasks.qsize() >= self._backend_queue_max:
@@ -718,7 +735,7 @@ class SLAM:
             self._backend_worker = threading.Thread(
                 target=self._backend_worker_loop, daemon=True, name="frodo-backend")
             self._backend_worker.start()
-        self._backend_tasks.put((idx, odom_factor, pair_half))
+        self._backend_tasks.put((idx, odom_factor, pair_half, self.frame_count, spans.stamp()))
 
     # -- relocalization ---------------------------------------------------------
 

@@ -26,6 +26,7 @@ from ..ops.geometry import (act_Sim3, constrain_points_to_ray, get_pixel_coords,
                             point_to_ray_dist, project_calib)
 from ..ops.normal_eqs import ray_dist_drd_cols, reduce_sim3_system
 from ..ops.robust import huber
+from ..utils import spans
 from . import frame as frame_mod
 from . import inference as inference_mod
 from .frame import Frame
@@ -93,6 +94,7 @@ def _gn_loop_fused(cfg: TrackingCfg, T_init: torch.Tensor, hg_fn):
     T = T_init
     old_cost = torch.full((), float("inf"), dtype=T.dtype, device=T.device)
     ok_all = torch.ones((), dtype=torch.bool, device=T.device)
+    step = -1
     for step in range(cfg.max_iters):
         H, g, new_cost = hg_fn(T)
         L, ok = _safe_cholesky(H)
@@ -107,6 +109,7 @@ def _gn_loop_fused(cfg: TrackingCfg, T_init: torch.Tensor, hg_fn):
         ok_all = ok_all & ok
         if bool(converged | ~ok_all):  # the loop's one host fetch per iteration
             break
+    spans.count("tracker.gn_iters", step + 1)
     return T, ok_all
 
 
@@ -187,27 +190,28 @@ def track_step(
     decode, matcher (prep | LM | occlusion gate + refine + score gate), then
     :func:`track_step_post`. Returns (kf_next, fused_frame, TrackResult).
     ``K`` (3, 3): the calibration, needed when ``cfg.use_calib``."""
-    res11, res21 = inference_mod.decode_asymmetric(
-        model, frame.feat, frame.pos, kf.feat, kf.pos, img_hw)
-    cold_cfg, warm_cfg = matching.split_match_cfg(dict(match_cfg))
-    mc = dict(warm_cfg if idx_f2k_init is not None else cold_cfg)
-    X11, X21 = res11["pts3d"], res21["pts3d"]
-    rays, tgt, p0 = matching.prep_for_iter_proj(X11, X21, idx_f2k_init)
-    p1f, converged = matching.iter_proj(
-        rays, tgt, p0,
-        max_iter=mc.get("max_iter", 10),
-        lambda_init=mc.get("lambda_init", 1e-8),
-        cost_thresh=mc.get("convergence_thresh", 1e-6),
-    )
-    idx_f2k, valid_match_k = matching._match_post_project(
-        X11, X21, res11["desc"], res21["desc"], p1f, converged,
-        dist_thresh=mc.get("dist_thresh", 1e-1),
-        radius=mc.get("radius", 3),
-        dilation_max=mc.get("dilation_max", 5),
-        ft_matching_threshold=mc.get("ft_matching_threshold", 0.8),
-        refine_impl=mc.get("refine_impl", "auto"),
-    )
-    return track_step_post(cfg, img_hw, kf, frame, res11, res21, idx_f2k, valid_match_k, K)
+    with spans.span("tracker.track_step"):
+        res11, res21 = inference_mod.decode_asymmetric(
+            model, frame.feat, frame.pos, kf.feat, kf.pos, img_hw)
+        cold_cfg, warm_cfg = matching.split_match_cfg(dict(match_cfg))
+        mc = dict(warm_cfg if idx_f2k_init is not None else cold_cfg)
+        X11, X21 = res11["pts3d"], res21["pts3d"]
+        rays, tgt, p0 = matching.prep_for_iter_proj(X11, X21, idx_f2k_init)
+        p1f, converged = matching.iter_proj(
+            rays, tgt, p0,
+            max_iter=mc.get("max_iter", 10),
+            lambda_init=mc.get("lambda_init", 1e-8),
+            cost_thresh=mc.get("convergence_thresh", 1e-6),
+        )
+        idx_f2k, valid_match_k = matching._match_post_project(
+            X11, X21, res11["desc"], res21["desc"], p1f, converged,
+            dist_thresh=mc.get("dist_thresh", 1e-1),
+            radius=mc.get("radius", 3),
+            dilation_max=mc.get("dilation_max", 5),
+            ft_matching_threshold=mc.get("ft_matching_threshold", 0.8),
+            refine_impl=mc.get("refine_impl", "auto"),
+        )
+        return track_step_post(cfg, img_hw, kf, frame, res11, res21, idx_f2k, valid_match_k, K)
 
 
 @torch.no_grad()
