@@ -20,6 +20,14 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      Nq != Nk) and in f32 at head dims 32 and 24; within the stated bar;
      kernel, plain and library (scaled_dot_product_attention, timed only)
      device ms per call beside the bound;
+  4b. rope: the RoPE2D kernel vs its plain twin at the model's shapes (the
+     qkv split of the encoder and the decoders at 768 and 576 tokens, the
+     cross-attention projections, the backend's batches, a tp shard, f32 at
+     head dims 32 and 24): bitwise equal; kernel, plain-twin and per-call
+     (the former path: tables rebuilt, eager rotation) device ms and host
+     us per attention beside the byte bound; the table build's; then the
+     ViT-L frontend's encode and pair decode at 288x512 under a profiler:
+     one launch per attention (24 and 48), counted by ``model.rope_launches``;
   5. tiny: track_step at tiny_config on the card vs the same on the CPU
      (plain versions), same weights and inputs;
   6. main: the ViT-L frontend (MASt3RConfig() widths, bf16 transformer, f32
@@ -199,7 +207,7 @@ from frodo_slam_tpu_torch import main as runner  # noqa: E402
 from frodo_slam_tpu_torch.config import make_config  # noqa: E402
 from frodo_slam_tpu_torch.data.synthetic import smooth_random_frames  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r  # noqa: E402
-from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel  # noqa: E402
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, rope_kernel  # noqa: E402
 from frodo_slam_tpu_torch.models import layers as layers_mod  # noqa: E402
 from frodo_slam_tpu_torch.ops import lie  # noqa: E402
 from frodo_slam_tpu_torch.parallel import mesh  # noqa: E402
@@ -222,11 +230,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
-KERNELS = [refine_kernel, ba_reduce_kernel, attention_kernel]  # every hand-written kernel module
+KERNELS = [refine_kernel, ba_reduce_kernel, attention_kernel, rope_kernel]  # every hand-written kernel module
 # each kernel's counted wrapper: it adds one where it launches its kernel
 WRAPPERS = {"refine_matches": refine_kernel.refine_matches,
             "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
-            "flash_attention": attention_kernel.flash_attention}
+            "flash_attention": attention_kernel.flash_attention,
+            "rope2d": rope_kernel.rope2d_}
 DEV = torch.device("cuda:0")
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -397,6 +406,114 @@ def phase_attention():
     return out
 
 
+# ---------------------------------------------------------------------------
+# RoPE2D: the kernel vs its plain twin
+# ---------------------------------------------------------------------------
+
+# (B, H, Nq, Nk, D, dtype, layout; tools/kernel_cases.rope_case): the
+# encoder's and the decoders' qkv split at 768 and 576 tokens, the decoders'
+# cross-attention projections, the backend's pair batches, a tp = 2 shard;
+# f32 at head dims 32 and 24 (the tiny configurations)
+ROPE_SHAPES = [(1, 16, 768, 768, 64, torch.bfloat16, "qkv"), (1, 16, 576, 576, 64, torch.bfloat16, "qkv"),
+               (1, 12, 768, 768, 64, torch.bfloat16, "qkv"), (1, 12, 768, 768, 64, torch.bfloat16, "proj"),
+               (1, 12, 576, 576, 64, torch.bfloat16, "qkv"), (1, 12, 576, 576, 64, torch.bfloat16, "proj"),
+               (2, 12, 768, 768, 64, torch.bfloat16, "qkv"), (4, 12, 576, 576, 64, torch.bfloat16, "proj"),
+               (1, 6, 576, 576, 64, torch.bfloat16, "qkv"), (2, 2, 96, 96, 32, torch.float32, "qkv"),
+               (1, 2, 100, 77, 24, torch.float32, "proj")]
+
+
+def rope_bound(B, H, Nq, Nk, D, dtype, layout):
+    """Least time for one call: q and k read and written once, their tables
+    read once (one table for the qkv split); bytes over the memory rate."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    tables = B * (Nq if layout == "qkv" else Nq + Nk) * 4 * (D // 2)
+    nbytes = esize * (2 * B * H * (Nq + Nk) * D + tables)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def host_us(fn, reps=20):
+    """Median host microseconds of one call of ``fn()``, the card idle when
+    it starts: what issuing it costs the frame's thread."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _rope_model_check(h=288, w=512):
+    """ViT-L's encode and one pair decode under a profiler: every attention
+    launches the RoPE kernel once, and ``model.rope_launches`` counts it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frodo_slam_tpu_torch.utils import spans
+
+    model = mast3r.init_model(mast3r.MASt3RConfig(), seed=0, device=DEV)
+    img = torch.randn((1, h, w, 3), device=DEV)
+    mast3r.encode_image(model, img)  # warm
+    zero_counts()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        feat, pos = mast3r.encode_image(model, img)
+        enc = read_counts()
+        mast3r.decode_and_heads(model, feat, pos, feat, pos, (h, w))
+    torch.cuda.synchronize()
+    dec = {k: v - enc[k] for k, v in read_counts().items()}
+    counted = {r["name"]: r["counters"].get("model.rope_launches") for r in spans.records()}
+    spans.clear()
+    out = dict(encode=[enc["rope2d"], enc["flash_attention"]], decode=[dec["rope2d"], dec["flash_attention"]],
+               counter=counted)
+    del model
+    torch.cuda.empty_cache()
+    assert out["encode"] == [24, 24] and out["decode"] == [48, 48], out
+    assert counted == {"model.encode": 24, "model.decode": 48}, counted
+    return out
+
+
+def phase_rope():
+    rope = rope_kernel.rope2d_
+    out = []
+    for i, (B, H, Nq, Nk, D, dt, layout) in enumerate(ROPE_SHAPES):
+        q, k, tq, tk = kernel_cases.rope_case(B, H, Nq, Nk, D, dt, layout, 200 + i, DEV)
+        if layout == "qkv":
+            Nk = Nq
+        want_q, want_k = rope_kernel.rope2d_plain(q, tq), rope_kernel.rope2d_plain(k, tk)
+        before = rope.launches
+        rope(q, k, tq, tk)
+        torch.cuda.synchronize()
+        assert rope.launches == before + 1
+        equal = bool(torch.equal(q, want_q)) and bool(torch.equal(k, want_k))
+        pos_q = kernel_cases.rope_pos(B, Nq, DEV)
+        pos_k = kernel_cases.rope_pos(B, Nk, DEV)
+        plain = lambda: (rope_kernel.rope2d_plain(q, tq), rope_kernel.rope2d_plain(k, tk))  # noqa: E731
+        per_call = lambda: (layers_mod.apply_rope2d(q, pos_q), layers_mod.apply_rope2d(k, pos_k))  # noqa: E731
+        kernel = lambda: rope(q, k, tq, tk)  # noqa: E731
+        bound_ms, nbytes = rope_bound(B, H, Nq, Nk, D, dt, layout)
+        r = dict(shape=[B, H, Nq, Nk, D], dtype=str(dt).split(".")[-1], layout=layout, equal=equal,
+                 # per call ~70 launches: 10 calls stay inside the queue the spin kernel fills
+                 ms=cuda_ms_queued(kernel), plain_ms=cuda_ms_queued(plain),
+                 per_call_ms=cuda_ms_queued(per_call, reps=10),
+                 host_us=host_us(kernel), per_call_host_us=host_us(per_call),
+                 attention_host_us=host_us(lambda: attention_kernel.flash_attention(q, k, k)),
+                 bound_ms=bound_ms, bound_by="bytes", bytes=nbytes)
+        emit("rope", **r)
+        out.append(r)
+        if not equal:
+            raise AssertionError(f"RoPE kernel != plain twin at {r['shape']} {r['dtype']} {layout}")
+        del q, k, tq, tk, want_q, want_k
+    pos = kernel_cases.rope_pos(1, 768, DEV)
+    tables = lambda: layers_mod.rope_tables(pos, 64, 100.0, torch.bfloat16)  # noqa: E731
+    emit("rope_tables", tokens=768, ms=cuda_ms_queued(tables), host_us=host_us(tables))
+    model = _rope_model_check()
+    emit("rope_model", **model)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _tiny_model(device):
     cfg = mast3r.tiny_config()
     model = mast3r.init_model(cfg, seed=0, device="cpu")
@@ -475,6 +592,7 @@ def phase_main(n_frames=12):
     assert all(p.shape == (8,) and np.isfinite(p).all() for p in poses)
     assert launches["refine_matches"] > 0, "the main path never launched the refine kernel"
     assert launches["flash_attention"] > 0, "the main path never launched the attention kernel"
+    assert launches["rope2d"] == launches["flash_attention"], f"RoPE not once an attention: {launches}"
     slam.terminate()
     return launches, ms
 
@@ -1132,6 +1250,7 @@ def phase_dataset_main(n_images=24, work=None):
     assert len(pngs) == rows.shape[0] and n_vertex > 0
     assert len(solve_ms) == rows.shape[0] - 1 and r["ray_solves"] == 0
     assert launches["flash_attention"] > 0 and launches["refine_matches"] > 0, launches
+    assert launches["rope2d"] == launches["flash_attention"], f"RoPE not once an attention: {launches}"
     assert launches["ray_edge_systems"] == 0, "the calibrated path launched the ray kernel"
     return r
 
@@ -1310,9 +1429,9 @@ def phase_realtime_backend_main(n_frames=12, hw=(288, 512)):
 # its end
 CLI_FPS_SHIM = """
 import json, runpy, sys
-from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, rope_kernel
 fns = {"refine_matches": refine_kernel.refine_matches, "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
-       "flash_attention": attention_kernel.flash_attention}
+       "flash_attention": attention_kernel.flash_attention, "rope2d": rope_kernel.rope2d_}
 for f in fns.values():
     f.launches = 0
 sys.argv = ["frodo_slam_tpu_torch.main"] + sys.argv[1:]
@@ -2130,7 +2249,7 @@ SYNTH_ROWS = [("straight", ["--frames", "10", "--noise", "0.003"]),
 def phase_synthetic():
     """Each row in a subprocess (the oracle patches the model module-wide),
     held to the JAX package's bars (tests/test_synthetic_e2e.py)."""
-    rows, launches = {}, {"refine_matches": 0, "ray_edge_systems": 0, "flash_attention": 0}
+    rows, launches = {}, {"refine_matches": 0, "ray_edge_systems": 0, "flash_attention": 0, "rope2d": 0}
     for name, args in SYNTH_ROWS:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "frodo_slam_tpu_torch.tools.eval_synthetic",
@@ -2166,6 +2285,7 @@ def main():
     phase_build()
     refine = phase_refine()
     attn = phase_attention()
+    rope = phase_rope()
     phase_tiny()
     main_launches, _ = phase_main()
     per_ray = phase_ray_reduce()
@@ -2190,6 +2310,7 @@ def main():
     ray_t = per_ray[{16: "win16_8p", 32: "win32_11p"}.get(E_main, f"all{E_main}")]
     rf = refine["384x512"]
     at = attn[0]  # the encoder at 768 tokens: (1, 16, 768, 64) bf16
+    rp = rope[0]  # the same encoder's qkv split
     per_path = lambda name: {"main": main_launches[name],  # noqa: E731
                              "backend_main": [ser["launches"][name], thr["launches"][name]],
                              "placement_main": [placed["shared"]["launches"][name],
@@ -2266,6 +2387,26 @@ def main():
         "per_shape": {"x".join(map(str, a["shape"])) + "_" + a["dtype"]:
                       {f: a[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err", "bar")}
                       for a in attn},
+    }, {
+        "name": "rope2d",
+        "route": "cuda",
+        "source": "frodo_slam_tpu_torch/csrc/rope2d.cu",
+        "replaces": None,  # eager PyTorch RoPE; XLA fused it on the TPU
+        "launches": ds["launches"]["rope2d"],
+        "launches_per_path": per_path("rope2d"),
+        "shape": rp["shape"],
+        "equal_to_plain": True,
+        "ms": rp["ms"],
+        "plain_ms": rp["plain_ms"],
+        "per_call_ms": rp["per_call_ms"],
+        "host_us": rp["host_us"],
+        "per_call_host_us": rp["per_call_host_us"],
+        "bound_ms": rp["bound_ms"],
+        "bound_by": rp["bound_by"],
+        "library_ms": None,
+        "per_shape": {"x".join(map(str, r["shape"])) + f"_{r['dtype']}_{r['layout']}":
+                      {f: r[f] for f in ("ms", "plain_ms", "per_call_ms", "host_us", "per_call_host_us", "bound_ms")}
+                      for r in rope},
     }]
     emit("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention_kernel import flash_attention
+from ..ops.rope_kernel import rope2d_, rope2d_plain
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +66,8 @@ class Mlp(nn.Module):
 # ---------------------------------------------------------------------------
 # RoPE2D (pos_embed.py:112-159): head dim split in half; first half rotated
 # by y position, second half by x position; freqs laid out as cat(f, f).
+# The tables depend on the token grid only, so a forward builds them once
+# and every attention rotates its q and k with one rope2d_ call.
 # ---------------------------------------------------------------------------
 
 def _rope_cos_sin(pos1d: torch.Tensor, half_dim: int, base: float, dtype):
@@ -75,21 +78,20 @@ def _rope_cos_sin(pos1d: torch.Tensor, half_dim: int, base: float, dtype):
     return torch.cos(freqs).to(dtype), torch.sin(freqs).to(dtype)
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([-x2, x1], dim=-1)
+def rope_tables(pos: torch.Tensor, head_dim: int, base: float, dtype) -> torch.Tensor:
+    """``pos``: (B, N, 2) int (y, x) -> (B, N, 4, head_dim/2) in ``dtype``:
+    cos_y, sin_y, cos_x, sin_x, one tensor so that :class:`TensorParallel`
+    moves it like any other argument."""
+    half = head_dim // 2
+    cos_y, sin_y = _rope_cos_sin(pos[..., 0], half, base, dtype)
+    cos_x, sin_x = _rope_cos_sin(pos[..., 1], half, base, dtype)
+    return torch.stack([cos_y, sin_y, cos_x, sin_x], dim=-2)
 
 
 def apply_rope2d(tokens: torch.Tensor, pos: torch.Tensor, base: float = 100.0) -> torch.Tensor:
-    """``tokens``: (B, heads, N, head_dim); ``pos``: (B, N, 2) int (y, x)."""
-    half = tokens.shape[-1] // 2
-    y_tok, x_tok = tokens[..., :half], tokens[..., half:]
-    cos_y, sin_y = _rope_cos_sin(pos[..., 0], half, base, tokens.dtype)
-    cos_x, sin_x = _rope_cos_sin(pos[..., 1], half, base, tokens.dtype)
-    cos_y, sin_y, cos_x, sin_x = (t[:, None] for t in (cos_y, sin_y, cos_x, sin_x))
-    y_tok = y_tok * cos_y + _rotate_half(y_tok) * sin_y
-    x_tok = x_tok * cos_x + _rotate_half(x_tok) * sin_x
-    return torch.cat([y_tok, x_tok], dim=-1)
+    """The plain reference: ``tokens`` (B, heads, N, head_dim); ``pos``:
+    (B, N, 2) int (y, x)."""
+    return rope2d_plain(tokens, rope_tables(pos, tokens.shape[-1], base, tokens.dtype))
 
 
 def _sdpa(q, k, v):
@@ -103,7 +105,9 @@ def _sdpa(q, k, v):
 class Attention(nn.Module):
     """Self-attention with RoPE2D (blocks.py:92-135). ``head_dim`` is the
     model's (dim // num_heads) unless given: a tensor-parallel shard holds
-    fewer heads of the same width."""
+    fewer heads of the same width. The forward takes the tokens' RoPE table
+    (:func:`rope_tables`; None without RoPE) and rotates q and k in place,
+    as views into the qkv projection's output."""
 
     def __init__(self, dim: int, num_heads: int, rope_base: float | None, head_dim: int | None = None):
         super().__init__()
@@ -113,19 +117,19 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * num_heads * self.head_dim)
         self.proj = nn.Linear(num_heads * self.head_dim, dim)
 
-    def forward(self, x, xpos):
+    def forward(self, x, rope):
         b, n, _ = x.shape
         qkv = linear(self.qkv, x).reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         if self.rope_base is not None:
-            q = apply_rope2d(q, xpos, self.rope_base)
-            k = apply_rope2d(k, xpos, self.rope_base)
+            rope2d_(q, k, rope, rope)
         return linear(self.proj, _sdpa(q, k, v))
 
 
 class CrossAttention(nn.Module):
-    """Cross-attention with RoPE2D (blocks.py:158-215); ``head_dim`` as in
-    :class:`Attention`."""
+    """Cross-attention with RoPE2D (blocks.py:158-215); ``head_dim`` and the
+    RoPE tables as in :class:`Attention`, q rotated by the query tokens'
+    table, k by the key tokens'."""
 
     def __init__(self, dim: int, num_heads: int, rope_base: float | None, head_dim: int | None = None):
         super().__init__()
@@ -138,15 +142,14 @@ class CrossAttention(nn.Module):
         self.projv = nn.Linear(dim, inner)
         self.proj = nn.Linear(inner, dim)
 
-    def forward(self, query, key, value, qpos, kpos):
+    def forward(self, query, key, value, qrope, krope):
         b, nq, _ = query.shape
         hd = self.head_dim
         q = linear(self.projq, query).reshape(b, nq, self.num_heads, hd).transpose(1, 2)
         k = linear(self.projk, key).reshape(b, -1, self.num_heads, hd).transpose(1, 2)
         v = linear(self.projv, value).reshape(b, -1, self.num_heads, hd).transpose(1, 2)
         if self.rope_base is not None:
-            q = apply_rope2d(q, qpos, self.rope_base)
-            k = apply_rope2d(k, kpos, self.rope_base)
+            rope2d_(q, k, qrope, krope)
         return linear(self.proj, _sdpa(q, k, v))
 
 
@@ -160,8 +163,8 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, xpos):
-        x = x + self.attn(layernorm(self.norm1, x), xpos)
+    def forward(self, x, rope):
+        x = x + self.attn(layernorm(self.norm1, x), rope)
         return x + self.mlp(layernorm(self.norm2, x))
 
 
@@ -179,10 +182,10 @@ class DecoderBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.norm_y = LayerNorm(dim)
 
-    def forward(self, x, y, xpos, ypos):
-        x = x + self.attn(layernorm(self.norm1, x), xpos)
+    def forward(self, x, y, xrope, yrope):
+        x = x + self.attn(layernorm(self.norm1, x), xrope)
         y_ = layernorm(self.norm_y, y)
-        x = x + self.cross_attn(layernorm(self.norm2, x), y_, y_, xpos, ypos)
+        x = x + self.cross_attn(layernorm(self.norm2, x), y_, y_, xrope, yrope)
         return x + self.mlp(layernorm(self.norm3, x))
 
 
@@ -250,7 +253,8 @@ class TensorParallel(nn.Module):
 
     def forward(self, *args):
         dtype = args[0].dtype
-        parts = [s(*(a.to(d) for a in args)) for s, d in zip(self.shards, self.devices)]
+        parts = [s(*(None if a is None else a.to(d) for a in args))
+                 for s, d in zip(self.shards, self.devices)]
         acc = parts[0].float()
         for p in parts[1:]:
             acc = acc + p.to(self.devices[0]).float()

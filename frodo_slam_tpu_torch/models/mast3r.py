@@ -33,11 +33,12 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn as nn
 
+from ..ops import rope_kernel
 from ..utils import spans
 from ..utils.device import resolve_device
 from . import dpt as dpt_mod
-from .layers import (Block, DecoderBlock, LayerNorm, Mlp, PatchEmbed, layernorm, linear, split_attention,
-                     split_cross_attention, split_mlp, xavier_)
+from .layers import (Block, DecoderBlock, LayerNorm, Mlp, PatchEmbed, layernorm, linear, rope_tables,
+                     split_attention, split_cross_attention, split_mlp, xavier_)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,6 +227,11 @@ def init_model(cfg: MASt3RConfig, seed: int = 0, device=None) -> MASt3R:
 # forward
 # ---------------------------------------------------------------------------
 
+def _rope(cfg: MASt3RConfig, pos, head_dim: int, dtype):
+    """The RoPE table of the tokens at ``pos``, or None without RoPE."""
+    return None if cfg.rope_base is None else rope_tables(pos, head_dim, cfg.rope_base, dtype)
+
+
 @torch.no_grad()
 def encode_image(model: MASt3R, img: torch.Tensor, portrait=None):
     """``img``: (B, H, W, 3) ImgNorm'd, stored landscape (W >= H). Returns
@@ -237,11 +243,14 @@ def encode_image(model: MASt3R, img: torch.Tensor, portrait=None):
     if portrait:
         img = img.transpose(1, 2)
     with spans.span("model.encode"):
+        launched = rope_kernel.thread_launches()
         x, pos = model.patch_embed(img.to(cfg.dtype))
         pos = pos.to(torch.int32)
+        rope = _rope(cfg, pos, cfg.enc_embed_dim // cfg.enc_num_heads, x.dtype)
         for blk in model.enc_blocks:
-            x = blk(x, pos)
+            x = blk(x, rope)
         x = layernorm(model.enc_norm, x)
+        spans.count("model.rope_launches", rope_kernel.thread_launches() - launched)
         return x.float(), pos
 
 
@@ -251,15 +260,19 @@ def decode(model: MASt3R, f1, pos1, f2, pos2):
     plain passes per layer. Returns (hooks1, hooks2): per view the 4 hook
     activations [enc_out, dec_{l/2}, dec_{3l/4}, dec_norm(dec_l)] in f32."""
     cfg = model.cfg
+    launched = rope_kernel.thread_launches()
     x1 = linear(model.decoder_embed, f1.to(cfg.dtype))
     x2 = linear(model.decoder_embed, f2.to(cfg.dtype))
+    head_dim = cfg.dec_embed_dim // cfg.dec_num_heads
+    r1, r2 = _rope(cfg, pos1, head_dim, x1.dtype), _rope(cfg, pos2, head_dim, x2.dtype)
     ys1: List[torch.Tensor] = []
     ys2: List[torch.Tensor] = []
     for b1, b2 in zip(model.dec_blocks, model.dec_blocks2):
         # each stream cross-attends to the other's previous layer output
-        x1, x2 = b1(x1, x2, pos1, pos2), b2(x2, x1, pos2, pos1)
+        x1, x2 = b1(x1, x2, r1, r2), b2(x2, x1, r2, r1)
         ys1.append(x1)
         ys2.append(x2)
+    spans.count("model.rope_launches", rope_kernel.thread_launches() - launched)
     h1, h2, h3 = cfg.hooks[1] - 1, cfg.hooks[2] - 1, cfg.hooks[3] - 1
     hooks1 = [f1, ys1[h1].float(), ys1[h2].float(), layernorm(model.dec_norm, ys1[h3]).float()]
     hooks2 = [f2, ys2[h1].float(), ys2[h2].float(), layernorm(model.dec_norm, ys2[h3]).float()]

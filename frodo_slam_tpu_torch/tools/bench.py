@@ -93,7 +93,7 @@ import torch
 
 from ..config import make_config
 from ..models import mast3r
-from ..ops import attention_kernel, ba_reduce_kernel, lie, matching, refine_kernel
+from ..ops import attention_kernel, ba_reduce_kernel, lie, matching, refine_kernel, rope_kernel
 from ..slam import frame as frame_mod
 from ..slam.backend import consecutive_half_rows, write_pair_rows
 from ..slam.global_opt import BAConfig, Edges, _edges_pre, empty_odom_edges, solve_gn_rays
@@ -109,7 +109,8 @@ H100_SXM_BF16_PEAK = 989e12  # NVIDIA H100 SXM, dense bf16 tensor-core FLOP/s
 # each hand-written kernel's counted wrapper
 KERNELS = {"refine_matches": refine_kernel.refine_matches,
            "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
-           "flash_attention": attention_kernel.flash_attention}
+           "flash_attention": attention_kernel.flash_attention,
+           "rope2d": rope_kernel.rope2d_}
 
 
 def synthetic_frames(rng: np.random.Generator, h: int, w: int, n_frames: int, device="cpu") -> List[torch.Tensor]:

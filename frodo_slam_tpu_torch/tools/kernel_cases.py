@@ -34,6 +34,9 @@ the window build's order (``slam/backend.py`` ``_build_window``):
 
 Inactive rows hold stale nonzero data (another pose, points and weights, a
 jj inside the window), as rows of an evicted pair would.
+
+RoPE cases (``rope_case``): q and k as the qkv split's strided views or as
+transposed projections, with tables of the tokens' grid (``rope_pos``).
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ import statistics
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..models import layers
 
 REFINE_CASES = ("identity_pm20", "collisions", "smooth_warp")
 RAY_N = 288 * 512
@@ -169,6 +174,34 @@ def attention_case(B: int, H: int, Nq: int, Nk: int, D: int, dtype, seed: int, d
     k = torch.randn((B, H, Nk, D), generator=g, device=device).to(dtype)
     v = torch.randn((B, H, Nk, D), generator=g, device=device).to(dtype)
     return q, k, v
+
+
+# the token grids of the model's token counts: 512x384 and 288x512 frames
+ROPE_GRIDS = {768: (24, 32), 576: (18, 32)}
+
+
+def rope_pos(B: int, N: int, device) -> torch.Tensor:
+    """(B, N, 2) int32 (y, x) positions in raster order on the
+    :data:`ROPE_GRIDS` grid of ``N`` tokens, else on one row."""
+    gh, gw = ROPE_GRIDS.get(N, (1, N))
+    yy, xx = torch.meshgrid(torch.arange(gh, device=device), torch.arange(gw, device=device), indexing="ij")
+    return torch.stack([yy, xx], -1).reshape(1, N, 2).expand(B, N, 2).to(torch.int32)
+
+
+def rope_case(B: int, H: int, Nq: int, Nk: int, D: int, dtype, layout: str, seed: int, device, base=100.0):
+    """q, k and their RoPE tables as the model hands them to ``rope2d_``.
+    ``layout="qkv"``: q and k are the strided views of one (B, Nq, 3, H, D)
+    projection (self-attention: ``Nk`` is ignored, one table for both);
+    ``"proj"``: (B, N, H, D) projections transposed (cross-attention, a
+    table each). Values scaled by 2, as the attention case's q."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    tq = layers.rope_tables(rope_pos(B, Nq, device), D, base, dtype)
+    if layout == "qkv":
+        qkv = (2.0 * torch.randn((B, Nq, 3, H, D), generator=g, device=device)).to(dtype)
+        return qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2), tq, tq
+    q = (2.0 * torch.randn((B, Nq, H, D), generator=g, device=device)).to(dtype).transpose(1, 2)
+    k = (2.0 * torch.randn((B, Nk, H, D), generator=g, device=device)).to(dtype).transpose(1, 2)
+    return q, k, tq, layers.rope_tables(rope_pos(B, Nk, device), D, base, dtype)
 
 
 def cuda_ms(fn, reps=20, warmup=3):

@@ -30,8 +30,10 @@ its children ``backend.snapshot``, ``backend.pairs``, ``backend.window``,
 ``backend.solve_rays`` / ``backend.solve_calib`` and ``backend.merge``.
 Counters: ``tracker.gn_iters`` (the tracking Gauss-Newton's iterations,
 each ending in one host fetch), ``frame.lock_wait_ns`` (the frontend's
-waits for ``SLAM._backend_lock``) and ``backend.lock_wait_ns`` (a backend
-task's).
+waits for ``SLAM._backend_lock``), ``backend.lock_wait_ns`` (a backend
+task's) and ``model.rope_launches`` (the RoPE kernel's launches in one
+``encode_image`` or ``decode``, by the calling thread: one an attention on
+the card, 0 on the CPU).
 """
 
 from __future__ import annotations

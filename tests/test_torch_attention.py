@@ -5,8 +5,9 @@ held against on the card, chip_smoke.py phase ``attention``) against the
 reference of the TPU library kernel, ``mha_reference`` (same module as
 ``flash_attention``), and against ``jax.nn.dot_product_attention`` (the
 package's "xla" path), on the same numpy inputs; then the port's
-``Attention`` and ``CrossAttention`` modules with RoPE against the JAX
-package's ``attention`` / ``cross_attention``.
+``Attention`` and ``CrossAttention`` modules with RoPE (their tables from
+``rope_tables``) against the JAX package's ``attention`` /
+``cross_attention``.
 
 Tolerances: f32 atol 2e-6 (one softmax, sums in another order). bf16: the
 plain version rounds only P and the output to bf16 (JAX's placement), while
@@ -117,18 +118,18 @@ def test_attention_modules_match_jax(dim, heads, grid):
     for name in ("projq", "projk", "projv", "proj"):
         _load(getattr(cross, name), pc[name])
 
+    rope = tlayers.rope_tables(torch.from_numpy(pos), dim // heads, 100.0, torch.float32)
     jp = jax.tree.map(jnp.asarray, pa)
     want = jlayers.attention(jp, jnp.asarray(x), jnp.asarray(pos), heads, 100.0)
     with torch.no_grad():
-        got = att(torch.from_numpy(x), torch.from_numpy(pos))
+        got = att(torch.from_numpy(x), rope)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
     jc = jax.tree.map(jnp.asarray, pc)
     want = jlayers.cross_attention(jc, jnp.asarray(x), jnp.asarray(y), jnp.asarray(y),
                                    jnp.asarray(pos), jnp.asarray(pos), heads, 100.0)
     with torch.no_grad():
-        got = cross(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(y),
-                    torch.from_numpy(pos), torch.from_numpy(pos))
+        got = cross(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(y), rope, rope)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 

@@ -1,8 +1,8 @@
 """What the kernels' wrappers decide on the host, checked on the CPU.
 
 - The attention wrapper's TMA plan (``attention_kernel.tma_plan``) on every
-  view the model hands the kernel: the qkv split, the cross-attention
-  projections, the RoPE outputs, at ViT-L widths (encoder 16 x 64, decoder
+  view the model hands the kernel: the qkv split and the cross-attention
+  projections, with and without RoPE (rotated in place), at ViT-L widths (encoder 16 x 64, decoder
   12 x 64), batch 1 and the backend's 2 and 4, and the tiny configurations'
   heads (32 and 24). Each is readable in place (16-byte aligned base,
   16-byte multiple strides) or, where it is not, goes through the padded
@@ -62,10 +62,14 @@ def _record_views(module, *inputs):
     return seen[0]
 
 
-def _pos(b, n):
+def _rope(b, n, head_dim, rope):
+    """The RoPE table of n tokens on a grid 32 wide, or None without RoPE."""
+    if rope is None:
+        return None
     gw = 32
     idx = torch.arange(n)
-    return torch.stack([idx // gw, idx % gw], -1)[None].expand(b, n, 2)
+    pos = torch.stack([idx // gw, idx % gw], -1)[None].expand(b, n, 2)
+    return layers.rope_tables(pos, head_dim, rope, torch.bfloat16)
 
 
 # (width, heads, tokens, batch): the ViT-L encoder (16 x 64) at 512x384 and
@@ -78,29 +82,31 @@ VIEW_CASES = [(1024, 16, 768, 1), (1024, 16, 576, 1), (768, 12, 768, 1), (768, 1
 @pytest.mark.parametrize("rope", [None, 100.0], ids=["no_rope", "rope"])
 @pytest.mark.parametrize("dim,heads,n,b", VIEW_CASES, ids=lambda x: str(x))
 def test_self_attention_views_are_read_in_place(dim, heads, n, b, rope):
-    """The qkv split (q, k, v strided into one (B, N, 3, H, D) buffer) and
-    the RoPE outputs (contiguous) need no copy."""
+    """The qkv split (q, k, v strided into one (B, N, 3, H, D) buffer, q and
+    k rotated in place by RoPE) needs no copy."""
     attn = layers.Attention(dim, heads, rope).to(torch.bfloat16)
     x = torch.randn((b, n, dim), dtype=torch.bfloat16)
-    q, k, v = _record_views(attn, x, _pos(b, n))
+    q, k, v = _record_views(attn, x, _rope(b, n, dim // heads, rope))
     for t in (q, k, v):
         plan = ak.tma_plan(t.shape, t.stride(), t.data_ptr(), t.element_size())
         assert plan is not None, (t.shape, t.stride())
         _legal(plan, t)
-    # v is always the strided split, never a copy
-    assert v.stride(2) == 3 * dim and v.stride(1) == dim // heads
+    # q, k and v are always the strided split, never a copy
+    for t in (q, k, v):
+        assert t.stride(2) == 3 * dim and t.stride(1) == dim // heads
 
 
 @pytest.mark.parametrize("rope", [None, 100.0], ids=["no_rope", "rope"])
 @pytest.mark.parametrize("dim,heads,n,b", VIEW_CASES, ids=lambda x: str(x))
 def test_cross_attention_views_are_read_in_place(dim, heads, n, b, rope):
-    """The cross-attention projections ((B, N, H, D) transposed views) and
-    their RoPE outputs need no copy; Nq may differ from Nk."""
+    """The cross-attention projections ((B, N, H, D) transposed views, q and
+    k rotated in place by RoPE) need no copy; Nq may differ from Nk."""
     attn = layers.CrossAttention(dim, heads, rope).to(torch.bfloat16)
     nk = n + 64
     q_in = torch.randn((b, n, dim), dtype=torch.bfloat16)
     kv_in = torch.randn((b, nk, dim), dtype=torch.bfloat16)
-    q, k, v = _record_views(attn, q_in, kv_in, kv_in, _pos(b, n), _pos(b, nk))
+    q, k, v = _record_views(attn, q_in, kv_in, kv_in, _rope(b, n, dim // heads, rope),
+                            _rope(b, nk, dim // heads, rope))
     assert q.shape[2] == n and k.shape[2] == nk
     for t in (q, k, v):
         plan = ak.tma_plan(t.shape, t.stride(), t.data_ptr(), t.element_size())
