@@ -1,6 +1,7 @@
-"""Device time of the kernels launched under the model's spans
-(``mast3r.encode_image`` and ``mast3r.decode_and_heads``, wherever they
-are called from), a frame of the traced slice."""
+"""Device time of the kernels launched under the program's model spans
+(``model.encode`` in ``mast3r.encode_image``, ``model.decode`` in
+``mast3r.decode_and_heads``, wherever they are called from), a frame of
+the traced slice."""
 
 
 def read(s):

@@ -1,6 +1,7 @@
-"""Median host time of the backend's window solve span
-(``backend.solve_gn_rays`` or ``backend.solve_gn_calib``; the solve ends
-in a host fetch) in the traced slice."""
+"""Median host time of the program's window solve span
+(``backend.solve_rays`` or ``backend.solve_calib``, around
+``solve_gn_rays`` / ``solve_gn_calib``; the solve ends in a host fetch) in
+the traced slice."""
 
 import statistics
 

@@ -1,4 +1,4 @@
-"""Median host time of the tracker's span (``system.track_step``: the pair
+"""Median host time of the program's ``tracker.track_step`` span (the pair
 decode, the matcher, the Gauss-Newton with its per-iteration fetches, the
 fusion) in the traced slice."""
 

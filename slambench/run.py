@@ -234,6 +234,8 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
     after set-up (``after_setup``)."""
     import torch
 
+    from frodo_slam_tpu_torch.utils import spans
+
     from . import reference, trace as trace_mod, weights
     from .yardstick import BF16_OPS_PER_S, model_flops
 
@@ -267,6 +269,7 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
         img_idx = k % len(images)
         traced = trace and k == 0
         if traced:
+            spans.clear()  # the program's spans of this slice only
             prof = trace_mod.profiler()
             prof.__enter__()
             tracer.on = True
@@ -307,13 +310,16 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
     summary = None
     if trace:
         t_sum = time.perf_counter()
-        summary = trace_mod.summarize(prof, tracer, slice_info["seconds"])
+        summary = trace_mod.summarize(prof, tracer, slice_info["seconds"], spans.records())
         print(f"slambench: the trace of {slice_info['frames']} frames read in "
-              f"{time.perf_counter() - t_sum:.1f} s", file=sys.stderr)
+              f"{time.perf_counter() - t_sum:.1f} s; spans and trace: {json.dumps(summary['linking'])}",
+              file=sys.stderr)
         fl = model_flops(system.widths, system.img_hw)
         summary.update(slice_frames=slice_info["frames"], slice_kf_tasks=slice_info["kf_tasks"],
                        flops_frame=fl["total"], flops_backend_decode=fl["total"] - fl["encode"],
-                       bf16_peak=BF16_OPS_PER_S)
+                       bf16_peak=BF16_OPS_PER_S,
+                       attention_shape={"widths": system.widths, "img_hw": system.img_hw,
+                                        "dtype": c["config"]["tpu"]["dtype"]})
         dev["busy_s"] = summary["busy_s"]
         dev["window_s"] = summary["window_s"]
         del prof

@@ -2,7 +2,8 @@
 count, the kernels' bounds and the card's peaks.
 
 Copies, so that a later change to the program cannot move the yardstick.
-Sources, all at commit b64ca557ffdbf94bf8f014549b988da65a7ba2ce:
+Sources, at commit b64ca557ffdbf94bf8f014549b988da65a7ba2ce where no other
+is named:
 
 - :func:`wave_field`: ``frodo_slam_tpu_torch/tools/bench.py``
   ``synthetic_frames`` (its base image, before the per-frame cut);
@@ -12,6 +13,11 @@ Sources, all at commit b64ca557ffdbf94bf8f014549b988da65a7ba2ce:
 - :func:`attention_bound` and :func:`ray_bound`: ``chip_smoke.py``
   (:355 and :503), with ``FLOPS_PER_POINT`` from
   ``frodo_slam_tpu_torch/ops/ba_reduce_kernel.py`` (:58);
+- :func:`forward_attention_bound`: the attention calls of one forward as
+  ``frodo_slam_tpu_torch/models/mast3r.py`` makes them at commit
+  3ef0cb73c13949013c35e84f170fc196eae51777 (``encode_image``: one an
+  encoder block; ``decode``: a self- and a cross-attention a block of each
+  of the two decoders);
 - the peaks: NVIDIA's H100 SXM data sheet (dense rates, 700 W).
 
 Nothing here imports the program.
@@ -135,3 +141,22 @@ def ray_bound(A: int, D: int, E: int, N: int, itemsize: int) -> float:
     nbytes = itemsize * (A * N * 4 + D * N * 3 + E * 12 + E * 56)
     peak = F32_OPS_PER_S if itemsize == 4 else F64_OPS_PER_S
     return max(nbytes / HBM_BYTES_PER_S, A * N * RAY_FLOPS_PER_POINT / peak)
+
+
+ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+
+def forward_attention_bound(m: Dict, img_hw, batch: int, dtype: str) -> Dict[str, float]:
+    """Least seconds of the attention calls of one forward at batch
+    ``batch``, from the widths ``m`` (a configuration file's ``model``
+    section), the network's image size and the transformer's ``dtype``
+    (``tpu.dtype``): ``encode`` sums :func:`attention_bound` over the
+    ``enc_depth`` calls of one encode, ``decode`` over the ``2 dec_depth``
+    self- and cross-attentions of each of a pair decode's two views, all
+    over the ``n`` tokens of the image."""
+    p = m["patch_size"]
+    n = (img_hw[0] // p) * (img_hw[1] // p)
+    size = ITEMSIZE[dtype]
+    enc = attention_bound(batch, m["enc_num_heads"], n, n, m["enc_embed_dim"] // m["enc_num_heads"], size)
+    dec = attention_bound(batch, m["dec_num_heads"], n, n, m["dec_embed_dim"] // m["dec_num_heads"], size)
+    return {"encode": m["enc_depth"] * enc, "decode": 2 * m["dec_depth"] * 2 * dec}
