@@ -28,6 +28,14 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      us per attention beside the byte bound; the table build's; then the
      ViT-L frontend's encode and pair decode at 288x512 under a profiler:
      one launch per attention (24 and 48), counted by ``model.rope_launches``;
+  4c. resample: a frame's resize, crop and ImgNorm on the card
+     (``ops/resample_kernel.py``) through ``system.preprocess_to_device``
+     against the host path ``preprocess_image`` (PIL) on the frames of
+     tools/kernel_cases.py (480x640, 360x640, 720x1280 to the 512 side;
+     random, all 0, all 255, a one-pixel checkerboard): bitwise equal, two
+     launches a frame; kernel device ms and host us, the whole call's host
+     ms (pinned upload and launches) against the host path's, beside the
+     byte bound;
   5. tiny: track_step at tiny_config on the card vs the same on the CPU
      (plain versions), same weights and inputs;
   6. main: the ViT-L frontend (MASt3RConfig() widths, bf16 transformer, f32
@@ -207,7 +215,7 @@ from frodo_slam_tpu_torch import main as runner  # noqa: E402
 from frodo_slam_tpu_torch.config import make_config  # noqa: E402
 from frodo_slam_tpu_torch.data.synthetic import smooth_random_frames  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r  # noqa: E402
-from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, rope_kernel  # noqa: E402
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, resample_kernel, rope_kernel  # noqa: E402
 from frodo_slam_tpu_torch.models import layers as layers_mod  # noqa: E402
 from frodo_slam_tpu_torch.ops import lie  # noqa: E402
 from frodo_slam_tpu_torch.parallel import mesh  # noqa: E402
@@ -230,12 +238,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
-KERNELS = [refine_kernel, ba_reduce_kernel, attention_kernel, rope_kernel]  # every hand-written kernel module
+KERNELS = [refine_kernel, ba_reduce_kernel, attention_kernel, rope_kernel,
+           resample_kernel]  # every hand-written kernel module
 # each kernel's counted wrapper: it adds one where it launches its kernel
+# (the resample wrapper two: its two launches)
 WRAPPERS = {"refine_matches": refine_kernel.refine_matches,
             "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
             "flash_attention": attention_kernel.flash_attention,
-            "rope2d": rope_kernel.rope2d_}
+            "rope2d": rope_kernel.rope2d_,
+            "resample": resample_kernel.resample}
+# the kernels every SLAM path launches; the resample kernel runs only on
+# frames that need a resize (vio_main's and viz_main's 360x640 frames)
+PATH_KERNELS = ("refine_matches", "ray_edge_systems", "flash_attention", "rope2d")
 DEV = torch.device("cuda:0")
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -510,6 +524,54 @@ def phase_rope():
     emit("rope_tables", tokens=768, ms=cuda_ms_queued(tables), host_us=host_us(tables))
     model = _rope_model_check()
     emit("rope_model", **model)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# resample: a frame's resize, crop and ImgNorm on the card vs the host path
+# ---------------------------------------------------------------------------
+
+def resample_bound(h, w, oh, ow):
+    """Least time for one frame: the f32 frame read once and the f32 network
+    input written once, over the memory rate."""
+    nbytes = 4 * 3 * (h * w + oh * ow)
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def phase_resample():
+    from frodo_slam_tpu_torch.slam.system import preprocess_image, preprocess_to_device
+
+    fn = resample_kernel.resample
+    cpu = torch.device("cpu")
+    out = []
+    for i, (h, w) in enumerate(kernel_cases.RESAMPLE_SHAPES):
+        oh, ow = resample_kernel.plan((h, w), 512).out_hw
+        equal = {}
+        for kind in kernel_cases.RESAMPLE_KINDS:
+            frame = kernel_cases.resample_frame(h, w, kind, 300 + i, cpu).numpy()
+            want = preprocess_image(frame, (oh, ow), False)
+            before = fn.launches
+            got = preprocess_to_device(frame, (oh, ow), False, DEV)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 2, fn.launches - before
+            equal[kind] = got.shape == want.shape and np.array_equal(
+                got.cpu().numpy().view(np.uint32), np.ascontiguousarray(want, np.float32).view(np.uint32))
+        frame = kernel_cases.resample_frame(h, w, "random", 300 + i, cpu).numpy()
+        dev_frame = torch.from_numpy(frame).to(DEV)
+        kernel = lambda: resample_kernel.resize_normalize(dev_frame, 512)  # noqa: E731
+        plain = lambda: resample_kernel.resize_normalize_plain(dev_frame, resample_kernel.plan((h, w), 512))  # noqa: E731
+        bound_ms, nbytes = resample_bound(h, w, oh, ow)
+        r = dict(shape=[h, w], out=[oh, ow], equal=equal, ms=cuda_ms_queued(kernel), host_us=host_us(kernel),
+                 plain_ms=cuda_ms_queued(plain, reps=10),
+                 call_host_ms=host_us(lambda: preprocess_to_device(frame, (oh, ow), False, DEV)) / 1e3,
+                 host_path_ms=host_us(lambda: preprocess_image(frame, (oh, ow), False), reps=10) / 1e3,
+                 bound_ms=bound_ms, bound_by="bytes", bytes=nbytes)
+        emit("resample", **r)
+        out.append(r)
+        if not all(equal.values()):
+            raise AssertionError(f"resample kernel != host path at {h}x{w}: {equal}")
+        del dev_frame
     torch.cuda.empty_cache()
     return out
 
@@ -1338,7 +1400,7 @@ def phase_realtime_main(n_frames=12, work=None):
     assert r["x64_eval"] is False and not r["solve_f64"] and r["head_dtype"] == "bfloat16" and r["pipelined"]
     assert r["keyframes"] == n_frames and np.isfinite(poses).all() and poses.shape == (n_frames, 8)
     assert len(solves) == n_frames - 1 and not any(x["solve_f64"] for x in solves), rec["solves"]
-    for name in WRAPPERS:
+    for name in PATH_KERNELS:
         assert launches[name] > 0, f"realtime_main never launched {name}: {launches}"
     return r
 
@@ -1429,9 +1491,10 @@ def phase_realtime_backend_main(n_frames=12, hw=(288, 512)):
 # its end
 CLI_FPS_SHIM = """
 import json, runpy, sys
-from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, rope_kernel
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, resample_kernel, rope_kernel
 fns = {"refine_matches": refine_kernel.refine_matches, "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
-       "flash_attention": attention_kernel.flash_attention, "rope2d": rope_kernel.rope2d_}
+       "flash_attention": attention_kernel.flash_attention, "rope2d": rope_kernel.rope2d_,
+       "resample": resample_kernel.resample}
 for f in fns.values():
     f.launches = 0
 sys.argv = ["frodo_slam_tpu_torch.main"] + sys.argv[1:]
@@ -1595,7 +1658,7 @@ def phase_bench_main(frames=128, inline_frames=32):
         assert line["window_rows"] == 128 and line["x64_eval"] is False, line
         # the f32 heads' convolutions and matmuls ran in f32, as in SLAM
         assert detail["allow_tf32"] == {"cudnn": False, "matmul": False}, detail["allow_tf32"]
-        for kname in WRAPPERS:
+        for kname in PATH_KERNELS:
             assert line["launches"][kname] > 0, f"bench {name} never launched {kname}: {line['launches']}"
     solve = _bench_window_solve()
     emit("bench_window_solve", **solve)
@@ -1742,8 +1805,9 @@ def phase_vio_main(n_frames=16, work=None):
     assert np.isfinite(metric).all() and np.isfinite(poses).all()
     assert r["odometry_factors"] > 0 and r["pgo_keyframes"] == n_frames - 1
     assert r["plane_fits"] > 0 and max(r["fit_rows"]) <= 1000
-    for name in WRAPPERS:
+    for name in PATH_KERNELS:
         assert launches[name] > 0, f"vio_main never launched {name}"
+    assert launches["resample"] == 2 * n_frames, f"not two resample launches a frame: {launches}"
     del slam
     torch.cuda.empty_cache()
     return r
@@ -1952,8 +2016,9 @@ def phase_viz_main(vio, n_frames=16, work=None):
     assert max(r["snapshot_bytes"]) <= 16 * v.max_points + 32 * store.capacity
     assert r["T_WC_equal"] and r["edges_equal"] and state["n_kf"] == len(slots), "state.json is not the store"
     assert pts.shape == ref.shape and len(ref) > 0 and pts_err <= 1e-5, (pts.shape, ref.shape, pts_err)
-    for name in WRAPPERS:
+    for name in PATH_KERNELS:
         assert launches[name] > 0, f"viz_main never launched {name}"
+    assert launches["resample"] == 2 * n_frames, f"not two resample launches a frame: {launches}"
     del slam, v, check
     viewers.clear()
     torch.cuda.empty_cache()
@@ -2229,7 +2294,7 @@ def phase_reloc_main(h=288, w=512):
     assert [ok for _, ok, _ in r["relocs"]] == [False] * len(blank) + [True], r["relocs"]
     assert r["atlas"] == 0, "the map reset"
     assert r["same_image_loop_edges"], f"no retrieved revisit became a loop edge: {r['loop_edges']}"
-    for name in WRAPPERS:
+    for name in PATH_KERNELS:
         assert r["launches"][name] > 0, f"reloc_main never launched {name}"
     del model
     torch.cuda.empty_cache()
@@ -2249,7 +2314,8 @@ SYNTH_ROWS = [("straight", ["--frames", "10", "--noise", "0.003"]),
 def phase_synthetic():
     """Each row in a subprocess (the oracle patches the model module-wide),
     held to the JAX package's bars (tests/test_synthetic_e2e.py)."""
-    rows, launches = {}, {"refine_matches": 0, "ray_edge_systems": 0, "flash_attention": 0, "rope2d": 0}
+    rows, launches = {}, {"refine_matches": 0, "ray_edge_systems": 0, "flash_attention": 0, "rope2d": 0,
+                          "resample": 0}
     for name, args in SYNTH_ROWS:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "frodo_slam_tpu_torch.tools.eval_synthetic",
@@ -2286,6 +2352,7 @@ def main():
     refine = phase_refine()
     attn = phase_attention()
     rope = phase_rope()
+    resample = phase_resample()
     phase_tiny()
     main_launches, _ = phase_main()
     per_ray = phase_ray_reduce()
@@ -2320,8 +2387,8 @@ def main():
                              "realtime_backend_main": [rt_runs[False]["launches"][name],
                                                        rt_runs[True]["launches"][name]],
                              "cli_fps_main": fps["launches"][name],
-                             "bench_main": [bench["threaded"]["launches"][name],
-                                            bench["inline"]["launches"][name]],
+                             "bench_main": [bench["threaded"]["launches"].get(name),  # the tool counts no resample
+                                            bench["inline"]["launches"].get(name)],
                              "reloc_main": reloc["launches"][name],
                              "vio_main": vio["launches"][name],
                              "viz_main": viz["launches"][name],
@@ -2407,6 +2474,27 @@ def main():
         "per_shape": {"x".join(map(str, r["shape"])) + f"_{r['dtype']}_{r['layout']}":
                       {f: r[f] for f in ("ms", "plain_ms", "per_call_ms", "host_us", "per_call_host_us", "bound_ms")}
                       for r in rope},
+    }, {
+        "name": "resample",
+        "route": "cuda",
+        "source": "frodo_slam_tpu_torch/csrc/resample.cu",
+        "replaces": None,  # PIL's resize on the host in both packages
+        # two a resized frame (the bench tool does not count it; its 288x512
+        # frames need no resize)
+        "launches_per_path": per_path("resample"),
+        "shape": resample[0]["shape"],
+        "equal_to_plain": True,
+        "ms": resample[0]["ms"],
+        "plain_ms": resample[0]["plain_ms"],
+        "host_us": resample[0]["host_us"],
+        "call_host_ms": resample[0]["call_host_ms"],
+        "host_path_ms": resample[0]["host_path_ms"],
+        "bound_ms": resample[0]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "per_shape": {"x".join(map(str, r["shape"])): {f: r[f] for f in ("ms", "plain_ms", "host_us", "call_host_ms",
+                                                                          "host_path_ms", "bound_ms")}
+                      for r in resample},
     }]
     emit("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

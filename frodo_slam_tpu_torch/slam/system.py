@@ -63,7 +63,7 @@ import torch
 from ..config import Config
 from ..data.image import resize_img
 from ..models import mast3r
-from ..ops import lie
+from ..ops import lie, resample_kernel
 from ..utils import spans
 from ..utils.device import indexed, resolve_device, set_f32_contract
 from ..utils.log import get_logger
@@ -98,6 +98,36 @@ def preprocess_image(img: np.ndarray, img_hw: Tuple[int, int], portrait: bool) -
     if not normalized:
         img = (img.astype(np.float32) - 0.5) / 0.5 if img.max() <= 1.0 else img
     return img[None] if img.ndim == 3 else img
+
+
+def preprocess_to_device(img: np.ndarray, img_hw: Tuple[int, int], portrait: bool,
+                         device: torch.device) -> torch.Tensor:
+    """:func:`preprocess_image`'s result on ``device``, bitwise. A frame that
+    needs a resize goes up as it is and is resized, cropped, normalised and
+    transposed there (``ops/resample_kernel.py``: two launches on the card,
+    the plain twin on the CPU); an f32 frame is quantised there too, any
+    other type on the host as ``resize_img`` does it. On the card the frame
+    is copied into a pinned block of the caching host allocator, which keeps
+    the block from reuse until the upload has ended; the copy is numpy's, on
+    this thread (PyTorch's CPU copy splits it over its thread pool, which
+    stalled it by 2-23 ms in one frame of three). A frame at the network
+    shape takes :func:`preprocess_image`."""
+    h, w = img_hw
+    true_shape = (w, h) if portrait else (h, w)
+    if img.shape[:2] == true_shape or img.shape[:2] == (h, w):
+        host = np.ascontiguousarray(preprocess_image(img, img_hw, portrait), dtype=np.float32)
+        return torch.from_numpy(host).to(device, non_blocking=True)
+    size = max(img_hw)
+    transpose = portrait and resample_kernel.plan(img.shape[:2], size).out_hw == true_shape
+    frame = img if img.dtype == np.float32 else np.uint8(img * 255)
+    if device.type == "cuda":
+        dtype = torch.float32 if frame.dtype == np.float32 else torch.uint8
+        staged = torch.empty(frame.shape, dtype=dtype, pin_memory=True)
+        np.copyto(staged.numpy(), frame)
+        frame = staged.to(device, non_blocking=True)
+    else:
+        frame = torch.from_numpy(np.ascontiguousarray(frame)).to(device)
+    return resample_kernel.resize_normalize(frame, size, transpose)
 
 
 class SLAM:
@@ -391,8 +421,7 @@ class SLAM:
             dev_img = img.to(self.device)  # pre-uploaded by a loader
         else:
             with spans.span("frame.preprocess"):
-                host = np.ascontiguousarray(self.preprocess(np.asarray(img)), dtype=np.float32)
-                dev_img = torch.from_numpy(host).to(self.device, non_blocking=True)
+                dev_img = preprocess_to_device(np.asarray(img), self.img_hw, self.portrait, self.device)
         feat, pos = mast3r.encode_image(self.model, dev_img)
         return dev_img, feat, pos
 

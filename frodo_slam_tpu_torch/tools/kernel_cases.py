@@ -37,6 +37,13 @@ jj inside the window), as rows of an evicted pair would.
 
 RoPE cases (``rope_case``): q and k as the qkv split's strided views or as
 transposed projections, with tables of the tokens' grid (``rope_pos``).
+
+Resample cases (``resample_frame``): (h, w, 3) f32 camera frames in [0, 1],
+uint8 values over 255 as a camera's frames reach ``SLAM.grab_rgb``, of
+:data:`RESAMPLE_SHAPES` (the downscales to the network's 512 side) and the
+bicubic upscale and portrait frame the tests add: ``random`` (uniform
+bytes), ``zeros``, ``ones`` and ``checker`` (a one-pixel checkerboard, the
+filter's worst ringing and clipping).
 """
 
 from __future__ import annotations
@@ -54,6 +61,10 @@ REFINE_CASES = ("identity_pm20", "collisions", "smooth_warp")
 RAY_N = 288 * 512
 RAY_WINDOW_CASES = ("win16_4p", "win16_8p", "win32_11p")
 RAY_ALL_ACTIVE_CASES = ("all16", "all32", "all128", "all512")
+# frames (h, w) the resample kernel shrinks to the 512 side: TUM's 640x480
+# to 384x512, a 16:9 camera at 360p and at 720p to 288x512
+RESAMPLE_SHAPES = ((480, 640), (360, 640), (720, 1280))
+RESAMPLE_KINDS = ("random", "zeros", "ones", "checker")
 
 
 def _grid(h: int, w: int, device) -> torch.Tensor:
@@ -237,3 +248,18 @@ def cuda_ms_queued(fn, reps=50, warmup=3):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def resample_frame(h: int, w: int, kind: str, seed: int, device) -> torch.Tensor:
+    """(h, w, 3) f32 frame of one :data:`RESAMPLE_KINDS` kind: uint8 values
+    over 255 (``np.float32`` division, as a loader makes them)."""
+    if kind == "random":
+        u = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    elif kind in ("zeros", "ones"):
+        u = np.full((h, w, 3), 0 if kind == "zeros" else 255, np.uint8)
+    elif kind == "checker":
+        yy, xx = np.indices((h, w))
+        u = np.repeat((255 * ((yy + xx) % 2)).astype(np.uint8)[..., None], 3, -1)
+    else:
+        raise ValueError(f"unknown resample case {kind!r}")
+    return torch.from_numpy(u.astype(np.float32) / 255.0).to(device)

@@ -21,8 +21,9 @@ returns them, :func:`clear` empties the buffer. Each record is a dict with
 ``parent`` (an ``id`` or None), ``attrs`` and ``counters``.
 
 Spans, outermost first: ``frame.dispatch`` (a frame's device half; its
-frame id is ``SLAM.frame_count``), ``frame.preprocess`` (host resize and
-upload), ``model.encode``, ``tracker.track_step``, ``model.decode``,
+frame id is ``SLAM.frame_count``), ``frame.preprocess`` (the frame's upload
+and resize launches, or the host normalise of a frame at the network shape),
+``model.encode``, ``tracker.track_step``, ``model.decode``,
 ``frame.finalize`` (the flags fetch and bookkeeping; parent of an inline
 backend task), ``backend.task`` (attributes ``kf``, ``cause``: the frame
 that made the keyframe, ``queued_ns``: when a threaded task was queued) with
