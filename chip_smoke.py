@@ -51,10 +51,23 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      bitwise equal; device ms (queued calls) and single-call ms, f64 device
      ms and plain ms beside the bound of the work the inputs need (A live
      rows, D distinct frames);
+  7b. calib: the calibrated edge kernel vs its plain version at the tum
+     cells' window buckets (tools/kernel_cases.py: 16, 32 and 64 rows with
+     a live prefix of consecutive pairs, N = 196,608 at 384x512, masked
+     points of every kind): f32 kernel vs f64 plain within 1e-4 of each
+     live edge's largest entry, f64 kernel within 1e-9; inactive rows
+     exactly 0; two calls bitwise equal; one launch a call; device ms
+     (queued calls), single-call ms, host us, f64 device ms and the f32
+     plain twin's ms beside the bound; then a traced run of the cell
+     tum384.kf-every: ``backend.calib_launches`` over
+     ``backend.solve_iters`` must be 1.0, and the run correct;
   8. backend_tiny: SLAM(use_backend=True) with odometry at tiny_config on
      the card vs the same on the CPU: flags equal, keyframe poses atol 1e-4;
   9. calib_tiny: the same with a calibration (calibrated tracker and window
-     solve): flags equal, keyframe poses atol 1e-4, no ray-kernel launch;
+     solve), under a profiler: flags equal, keyframe poses atol 1e-4, no
+     ray-kernel launch, one calibrated edge-kernel launch a GN iteration
+     (each solve's ``backend.calib_launches`` equal to its
+     ``backend.solve_iters`` on the card, 0 on the CPU);
  10. vio_tiny: SLAM(local_opt_mode=True) at tiny_config with the height
      prior on, twelve identical frames and 1 cm of odometry a frame, on the
      card vs the CPU: flags equal, keyframe poses and scale channels atol
@@ -93,8 +106,9 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      configs/eval_calib.yaml (calibrated tracker and backend, subsample 2,
      serialized) and forces every tracked frame to a keyframe, ViT-L at
      512x384 with shared random decoders, --no-retrieval --save-as: finite
-     trajectory rows, the .ply, one PNG per keyframe; per-frame and
-     per-solve ms, edge rows per window, peak memory;
+     trajectory rows, the .ply, one PNG per keyframe, one calibrated
+     edge-kernel launch a GN iteration; per-frame and per-solve ms, edge
+     rows per window, peak memory;
  14. realtime_main: the dataset runner with a config that inherits
      configs/realtime.yaml (bf16 heads, ``tpu.x64_eval: false``, the
      pipelined frontend) and forces every tracked frame to a keyframe, on 12
@@ -215,7 +229,7 @@ from frodo_slam_tpu_torch import main as runner  # noqa: E402
 from frodo_slam_tpu_torch.config import make_config  # noqa: E402
 from frodo_slam_tpu_torch.data.synthetic import smooth_random_frames  # noqa: E402
 from frodo_slam_tpu_torch.models import mast3r  # noqa: E402
-from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, resample_kernel, rope_kernel  # noqa: E402
+from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, calib_edge_kernel, refine_kernel, resample_kernel, rope_kernel  # noqa: E402
 from frodo_slam_tpu_torch.models import layers as layers_mod  # noqa: E402
 from frodo_slam_tpu_torch.ops import lie  # noqa: E402
 from frodo_slam_tpu_torch.parallel import mesh  # noqa: E402
@@ -239,16 +253,19 @@ BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # f64 outside the tensor cores
 KERNELS = [refine_kernel, ba_reduce_kernel, attention_kernel, rope_kernel,
-           resample_kernel]  # every hand-written kernel module
+           resample_kernel, calib_edge_kernel]  # every hand-written kernel module
 # each kernel's counted wrapper: it adds one where it launches its kernel
 # (the resample wrapper two: its two launches)
 WRAPPERS = {"refine_matches": refine_kernel.refine_matches,
             "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
             "flash_attention": attention_kernel.flash_attention,
             "rope2d": rope_kernel.rope2d_,
-            "resample": resample_kernel.resample}
+            "resample": resample_kernel.resample,
+            "calib_edge_systems": calib_edge_kernel.calib_edge_systems}
 # the kernels every SLAM path launches; the resample kernel runs only on
-# frames that need a resize (vio_main's and viz_main's 360x640 frames)
+# frames that need a resize (vio_main's and viz_main's 360x640 frames), the
+# calibrated edge kernel only in calibrated window solves (calib_tiny,
+# dataset_main)
 PATH_KERNELS = ("refine_matches", "ray_edge_systems", "flash_attention", "rope2d")
 DEV = torch.device("cuda:0")
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -745,6 +762,113 @@ def phase_ray_reduce():
     return per_case
 
 
+# ---------------------------------------------------------------------------
+# calib: the calibrated edge kernel at the tum cells' window shapes
+# ---------------------------------------------------------------------------
+
+CALIB_KW = dict(sigma_pixel=1.0, sigma_depth=10.0, pixel_border=-10.0, depth_eps=1e-6)
+
+
+def calib_bound(A, D, E, N, P, itemsize=4):
+    """Least time for one call, for the work these inputs need: each live
+    row's z_i, w0 (scalars) and idx (int32) read once, each distinct frame
+    its live rows read once (3 scalars a point), the P poses (8) read and
+    every row's B and g written (56), vs A x N x FLOPS_PER_POINT operations
+    at the f32 (or f64) peak outside the tensor cores."""
+    nbytes = A * N * (2 * itemsize + 4) + D * N * 3 * itemsize + (P * 8 + E * 56) * itemsize
+    ops = A * N * calib_edge_kernel.FLOPS_PER_POINT
+    peak = F32_OPS_PER_S if itemsize == 4 else F64_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _calib_cell_rate(seed=2147520001, seconds=5.0):
+    """A traced run of the cell ``tum384.kf-every`` (slambench, on this
+    card): each calibrated window solve's ``backend.calib_launches`` over
+    its ``backend.solve_iters``, summed over the traced session."""
+    from slambench import run as bench_run
+
+    from frodo_slam_tpu_torch.utils import spans
+
+    spans.clear()
+    before = calib_edge_kernel.calib_edge_systems.launches
+    c = bench_run.load_cell("tum384.kf-every")
+    r = bench_run.run_cell(c, seed, seconds, True, "cuda", time.time())
+    solves = [x for x in spans.records() if x["name"] == "backend.solve_calib"]
+    iters = sum(x["counters"].get("backend.solve_iters", 0) for x in solves)
+    launches = sum(x["counters"].get("backend.calib_launches", 0) for x in solves)
+    spans.clear()
+    torch.cuda.empty_cache()
+    return dict(seed=seed, correct=bool(bench_run.judge(r["checks"], c["limits"])[0]), solves=len(solves),
+                solve_iters=iters, calib_launches=launches, rate=launches / iters if iters else None,
+                iters_per_solve=iters / len(solves) if solves else None,
+                run_launches=calib_edge_kernel.calib_edge_systems.launches - before)
+
+
+def phase_calib():
+    """Each case of kernel_cases.CALIB_CASES at 384x512 (the window buckets
+    of a 32-frame session, N = 196,608): f32 and f64 kernel vs the f64 plain
+    version (f32 within 1e-4 of each live edge's largest entry, f64 within
+    1e-9), inactive rows exactly 0, two calls bitwise equal, one launch a
+    call; the device time (calls queued behind a spin kernel), the
+    single-call time, the f64 device time and the f32 plain twin's time on
+    the card beside the bound. Then a traced run of tum384.kf-every: one
+    kernel launch a GN iteration (``backend.calib_launches`` over
+    ``backend.solve_iters``)."""
+    ck = calib_edge_kernel
+    hw = kernel_cases.CALIB_HW
+    per_case = {}
+    for k, case in enumerate(kernel_cases.CALIB_CASES):
+        args = kernel_cases.calib_case(case, 400 + k, DEV)
+        E, A, P = kernel_cases.CALIB_CASES[case]
+        jj, active = args[6], args[8]
+        _, D = kernel_cases.ray_counts(jj, active)
+        N = int(args[2].shape[2])
+        kw = dict(img_hw=hw, **CALIB_KW)
+        run32 = lambda: ck.calib_edge_systems(*args, **kw, n_active=A)  # noqa: E731
+        d64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+        run64 = lambda: ck.calib_edge_systems(*d64, **kw, n_active=A)  # noqa: E731
+        before = ck.calib_edge_systems.launches
+        (B32, g32), (B32b, g32b), (B64, g64), (B64b, g64b) = run32(), run32(), run64(), run64()
+        torch.cuda.synchronize()
+        launched = ck.calib_edge_systems.launches - before
+        Bp, gp = ck.calib_edge_systems_plain(*d64, **kw)
+        live = active.cpu()
+        dead = ~active
+        out = dict(case=case, E=E, N=N, A=A, D=D, P=P, launches=launched,
+                   err_f32=max(_rel_err(B32, Bp, live), _rel_err(g32, gp, live)),
+                   err_f64=max(_rel_err(B64, Bp, live), _rel_err(g64, gp, live)),
+                   repeatable=bool(torch.equal(B32, B32b) and torch.equal(g32, g32b)
+                                   and torch.equal(B64, B64b) and torch.equal(g64, g64b)),
+                   inactive_zero=bool(all(int(torch.count_nonzero(t[dead])) == 0
+                                          for t in (B32, g32, B64, g64))))
+        del Bp, gp
+        out["device_ms"] = cuda_ms_queued(run32)
+        out["single_ms"] = cuda_ms(run32)
+        out["host_us"] = host_us(run32)
+        out["f64_device_ms"] = cuda_ms_queued(run64)
+        out["plain_ms"] = cuda_ms(lambda: ck.calib_edge_systems_plain(*args, **kw), reps=3, warmup=1)
+        out["f64_bound_ms"] = calib_bound(A, D, E, N, P, 8)["bound_ms"]
+        out.update(calib_bound(A, D, E, N, P))
+        per_case[case] = out
+        emit("calib", **out)
+        if not (out["err_f32"] <= 1e-4 and out["err_f64"] <= 1e-9):
+            raise AssertionError(f"calib kernel disagrees with its plain version on {case}")
+        if not (out["repeatable"] and out["inactive_zero"] and launched == 4):
+            raise AssertionError(f"calib kernel not repeatable, an inactive row not 0 or launches "
+                                 f"{launched} != 4 on {case}")
+        del args, d64, B32, g32, B32b, g32b, B64, g64, B64b, g64b
+        torch.cuda.empty_cache()
+    cell = _calib_cell_rate()
+    emit("calib_cell", **cell)
+    if not (cell["solves"] and cell["rate"] == 1.0 and cell["correct"]):
+        raise AssertionError(f"tum384.kf-every: the calibrated solve did not launch the kernel once a "
+                             f"GN iteration: {cell}")
+    per_case["cell"] = cell
+    return per_case
+
+
 class _Failures(logging.Handler):
     """Collects ERROR records (a failed backend task is logged by the worker
     and swallowed there, so the log is where a failure shows)."""
@@ -802,8 +926,14 @@ TINY_K = np.array([[60.0, 0.0, 32.0], [0.0, 60.0, 16.0], [0.0, 0.0, 1.0]])
 
 
 def _tiny_calib(device):
-    """Five identical frames through the calibrated tracker; each new
-    keyframe's task runs the calibrated window solve."""
+    """Five identical frames through the calibrated tracker under a
+    profiler; each new keyframe's task runs the calibrated window solve.
+    Returns the flags, the keyframe poses, the solves and each solve's
+    (``backend.solve_iters``, ``backend.calib_launches``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frodo_slam_tpu_torch.utils import spans
+
     model = _tiny_model(device)
     h, w = 32, 64
     img = np.random.default_rng(2).uniform(0, 1, (h, w, 3)).astype(np.float32)
@@ -812,22 +942,32 @@ def _tiny_calib(device):
     solves = []
     real = slam.backend.solve_window_calib
     slam.backend.solve_window_calib = lambda *a, **k: solves.append(1) or real(*a, **k)
-    flags = [slam.grab_rgb(img, timestamp=float(i))[::2] for i in range(5)]
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        flags = [slam.grab_rgb(img, timestamp=float(i))[::2] for i in range(5)]
+    counted = [(x["counters"].get("backend.solve_iters"), x["counters"].get("backend.calib_launches"))
+               for x in spans.records() if x["name"] == "backend.solve_calib"]
+    spans.clear()
     poses = slam.keyframe_poses()[1]
     slam.terminate()
-    return flags, poses, len(solves)
+    return flags, poses, len(solves), counted
 
 
 def phase_calib_tiny():
     before = read_counts()
-    fl_g, P_g, solves_g = _tiny_calib(DEV)
+    fl_g, P_g, solves_g, counted_g = _tiny_calib(DEV)
     launched = {k: v - before[k] for k, v in read_counts().items()}
-    fl_c, P_c, solves_c = _tiny_calib(torch.device("cpu"))
+    fl_c, P_c, solves_c, counted_c = _tiny_calib(torch.device("cpu"))
     diff = float(np.abs(P_g - P_c).max())
+    iters = sum(n for n, _ in counted_g)
     emit("calib_tiny", flags_cuda=fl_g, flags_cpu=fl_c, calib_solves=solves_g,
-         pose_max_abs_diff=diff, launches=launched)
+         pose_max_abs_diff=diff, launches=launched, solve_iters=[n for n, _ in counted_g],
+         calib_launches=[m for _, m in counted_g], rate=sum(m for _, m in counted_g) / iters if iters else None,
+         cpu_calib_launches=[m for _, m in counted_c])
     assert fl_g == fl_c and all(f == (True, True) for f in fl_g)
     assert solves_g == solves_c == 4 and np.isfinite(P_g).all()
+    assert len(counted_g) == 4 and all(m == n for n, m in counted_g), counted_g
+    assert launched["calib_edge_systems"] == iters and all(m == 0 for _, m in counted_c), counted_c
     assert launched["ray_edge_systems"] == 0, "the calibrated solve launched the ray kernel"
     assert launched["refine_matches"] > 0 and launched["flash_attention"] > 0, launched
     np.testing.assert_allclose(P_g, P_c, atol=1e-4)
@@ -1314,6 +1454,7 @@ def phase_dataset_main(n_images=24, work=None):
     assert launches["flash_attention"] > 0 and launches["refine_matches"] > 0, launches
     assert launches["rope2d"] == launches["flash_attention"], f"RoPE not once an attention: {launches}"
     assert launches["ray_edge_systems"] == 0, "the calibrated path launched the ray kernel"
+    assert launches["calib_edge_systems"] == sum(rec["gn_iters"]), "not one calibrated launch a GN iteration"
     return r
 
 
@@ -1487,17 +1628,14 @@ def phase_realtime_backend_main(n_frames=12, hw=(288, 512)):
 
 
 # counts the kernels the runner's process launches (tools/cli_fps.py runs
-# the runner in a child process): zeroed when the child starts, printed at
-# its end
+# the runner in a child process): the wrappers of WRAPPERS, found by module
+# and name, zeroed when the child starts, printed at its end
 CLI_FPS_SHIM = """
-import json, runpy, sys
-from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, refine_kernel, resample_kernel, rope_kernel
-fns = {"refine_matches": refine_kernel.refine_matches, "ray_edge_systems": ba_reduce_kernel.ray_edge_systems,
-       "flash_attention": attention_kernel.flash_attention, "rope2d": rope_kernel.rope2d_,
-       "resample": resample_kernel.resample}
+import importlib, json, runpy, sys
+fns = {k: getattr(importlib.import_module(m), a) for k, (m, a) in json.loads(sys.argv[1]).items()}
 for f in fns.values():
     f.launches = 0
-sys.argv = ["frodo_slam_tpu_torch.main"] + sys.argv[1:]
+sys.argv = ["frodo_slam_tpu_torch.main"] + sys.argv[2:]
 runpy.run_module("frodo_slam_tpu_torch.main", run_name="__main__")
 print("kernel_launches " + json.dumps({k: f.launches for k, f in fns.items()}), flush=True)
 """
@@ -1512,7 +1650,9 @@ def phase_cli_fps_main(frames=64):
     from frodo_slam_tpu_torch.tools import cli_fps
 
     real = cli_fps.runner_cmd
-    cli_fps.runner_cmd = lambda seq, cfg, n: [sys.executable, "-c", CLI_FPS_SHIM, *real(seq, cfg, n)[3:]]
+    wrappers = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in WRAPPERS.items()})
+    cli_fps.runner_cmd = lambda seq, cfg, n: [sys.executable, "-c", CLI_FPS_SHIM, wrappers,
+                                              *real(seq, cfg, n)[3:]]
     try:
         t0 = time.perf_counter()
         line, proc = cli_fps.measure(frames, timeout=900)
@@ -2314,8 +2454,7 @@ SYNTH_ROWS = [("straight", ["--frames", "10", "--noise", "0.003"]),
 def phase_synthetic():
     """Each row in a subprocess (the oracle patches the model module-wide),
     held to the JAX package's bars (tests/test_synthetic_e2e.py)."""
-    rows, launches = {}, {"refine_matches": 0, "ray_edge_systems": 0, "flash_attention": 0, "rope2d": 0,
-                          "resample": 0}
+    rows, launches = {}, {name: 0 for name in WRAPPERS}
     for name, args in SYNTH_ROWS:
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "frodo_slam_tpu_torch.tools.eval_synthetic",
@@ -2356,6 +2495,7 @@ def main():
     phase_tiny()
     main_launches, _ = phase_main()
     per_ray = phase_ray_reduce()
+    per_calib = phase_calib()
     phase_backend_tiny()
     phase_calib_tiny()
     phase_vio_tiny()
@@ -2495,6 +2635,26 @@ def main():
         "per_shape": {"x".join(map(str, r["shape"])): {f: r[f] for f in ("ms", "plain_ms", "host_us", "call_host_ms",
                                                                           "host_path_ms", "bound_ms")}
                       for r in resample},
+    }, {
+        "name": "calib_edge_systems",
+        "route": "cuda",
+        "source": "frodo_slam_tpu_torch/csrc/calib_edge_systems.cu",
+        "replaces": None,  # XLA's reduction of the calibrated edges on the TPU
+        "launches": ds["launches"]["calib_edge_systems"],
+        "launches_per_path": per_path("calib_edge_systems"),
+        "shape": [per_calib["win64"]["E"], per_calib["win64"]["N"]],
+        "case": "win64",
+        "max_rel_err": per_calib["win64"]["err_f32"],
+        "ms": per_calib["win64"]["device_ms"],
+        "single_ms": per_calib["win64"]["single_ms"],
+        "plain_ms": per_calib["win64"]["plain_ms"],
+        "bound_ms": per_calib["win64"]["bound_ms"],
+        "bound_by": per_calib["win64"]["bound_by"],
+        "library_ms": None,
+        "cell_rate": per_calib["cell"]["rate"],
+        "per_case": {c: {k: v[k] for k in ("E", "A", "D", "device_ms", "single_ms", "host_us", "plain_ms",
+                                           "f64_device_ms", "bound_ms", "f64_bound_ms", "err_f32", "err_f64")}
+                     for c, v in per_calib.items() if c != "cell"},
     }]
     emit("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

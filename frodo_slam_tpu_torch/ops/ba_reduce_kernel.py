@@ -155,11 +155,14 @@ def _slots(device_index: int, f64: bool) -> int:
 
 
 # per (device, stream): the per-edge tickets, zero between calls (the last
-# CTA of each edge resets its own)
+# CTA of each edge resets its own); the ray and the calibrated edge kernels
+# share them, since the stream orders their calls
 _TICKETS: dict = {}
 
 
-def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+def edge_tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` per-edge tickets of ``stream`` on ``device``, zero
+    between the edge kernels' calls."""
     t = _TICKETS.get((device.index, stream))
     if t is None or t.numel() < n:
         t = torch.zeros((max(n, 64),), dtype=torch.int32, device=device)
@@ -215,7 +218,7 @@ def ray_edge_systems(scal, XiT, w0, X, jj, active, *, sigma_ray: float, sigma_di
     if E == 0:
         return B, g
     stream = torch.cuda.current_stream(dev).cuda_stream
-    tickets = _tickets(dev, stream, E)
+    tickets = edge_tickets(dev, stream, E)
     lib = _library()
     fn = lib.ray_edge_systems_f32 if dt == torch.float32 else lib.ray_edge_systems_f64
     args = (scal.data_ptr(), XiT.data_ptr(), w0.data_ptr(), X.data_ptr(), jj.data_ptr(),

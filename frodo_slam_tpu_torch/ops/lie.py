@@ -311,6 +311,15 @@ def sim3_rel(Ti: torch.Tensor, Tj: torch.Tensor) -> torch.Tensor:
     return torch.cat([t, q, s], dim=-1)
 
 
+def sim3_rel_sRt(Ti: torch.Tensor, Tj: torch.Tensor) -> torch.Tensor:
+    """``T_i^{-1} * T_j`` as ``[sR (row-major) | t]`` (..., 12), sR = s
+    ``quat_to_R(q)`` (for a quaternion off unit norm not a rotation): the
+    relative pose as the backend's edge reductions apply it to points."""
+    Tij = sim3_rel(Ti, Tj)
+    sR = sim3_s(Tij)[..., None] * quat_to_R(sim3_q(Tij))
+    return torch.cat([sR.reshape(*sR.shape[:-2], 9), sim3_t(Tij)], dim=-1)
+
+
 def _sim3_W_coeffs(theta_sq, sigma):
     """Coefficients (C, A, B) of W = C I + A Phi + B Phi^2.
 

@@ -8,8 +8,11 @@ from __future__ import annotations
 
 import torch
 
+# the Huber threshold of the window solves (nonlinear_optimizer.py:28)
+HUBER_K = 1.345
 
-def huber(r: torch.Tensor, k: float = 1.345) -> torch.Tensor:
+
+def huber(r: torch.Tensor, k: float = HUBER_K) -> torch.Tensor:
     """Huber IRLS weight: 1 inside the kernel, k/|r| outside
     (nonlinear_optimizer.py:28-33)."""
     r_abs = torch.abs(r)

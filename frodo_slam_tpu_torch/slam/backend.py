@@ -447,7 +447,8 @@ class BackendGraph:
         stats: dict = {}
         with spans.span("backend.solve_calib"):
             T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, K,
-                                   edges_win, odom_win, sb, stats=stats, placement=self.placement)
+                                   edges_win, odom_win, sb, stats=stats, n_active=2 * len(self._pairs),
+                                   placement=self.placement)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 

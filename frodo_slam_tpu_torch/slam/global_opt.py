@@ -15,9 +15,9 @@ log-depth residual of ``calib_proj_kernel`` (:2295-2608) with its outer loop
 Since ``Ji = -Jj``, each directed edge's 14x14 Hessian is
 ``[[A, -A], [-A, A]]`` with ``A = M^T B M``, where B is the 7x7 Gram of the
 relative-pose Jacobian and ``M = AdjInv(T_i)``: only B and its gradient are
-reduced over the points, by the Hopper kernel of :mod:`..ops.ba_reduce_kernel`
-(its plain version on a CPU tensor); the calibrated edges, which JAX reduces
-with XLA too, are batched tensor code over chunks of edges
+reduced over the points, by a Hopper kernel (its plain version on a CPU
+tensor): the ray edges by :mod:`..ops.ba_reduce_kernel`, the calibrated
+edges, which JAX reduces with XLA, by :mod:`..ops.calib_edge_kernel`
 (:func:`_calib_edge_systems`). The dense (7P x 7P) system is assembled
 on the device and Cholesky-solved there: in f64 by default (the reference's
 double Eigen solve, and the JAX package under x64), or, with
@@ -28,7 +28,9 @@ refinement, as the JAX package solves with x64 off.
 The GN loop stops early on the host: each iteration fetches one bool
 (``|dx| >= delta_norm``), so a solve makes exactly one edge-kernel launch per
 iteration it runs (one per edge part under a placement), and its result is
-the JAX ``lax.while_loop``'s.
+the JAX ``lax.while_loop``'s. While a profiler records, a solve adds its
+iterations to the ``backend.solve_iters`` counter of the span open around it,
+and the calibrated solve its kernel launches to ``backend.calib_launches``.
 
 Under a :class:`~..parallel.mesh.Placement` the edge rows are split over the
 backend's devices (:func:`~..parallel.mesh.edge_parts`, the JAX package's
@@ -40,15 +42,16 @@ in row order, where the assembly and the Cholesky run once.
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops import lie
+from ..ops import calib_edge_kernel, lie
 from ..ops.ba_reduce_kernel import ray_edge_systems
+from ..ops.calib_edge_kernel import CALIB_CHUNK_POINTS, calib_edge_systems, reduce_rel_systems
 from ..ops.robust import huber
 from ..parallel.mesh import edge_parts
+from ..utils import spans
 
 
 class BAConfig(NamedTuple):
@@ -72,14 +75,6 @@ class BAConfig(NamedTuple):
     # ``tpu.x64_eval``: the window solve in f64 (the reference's double Eigen
     # solve), else in f32 with damping and one refinement step
     solve_f64: bool = True
-
-
-# points per step of the calibrated edge reduction: bounds its (c, N, 3, 8)
-# Jacobian-and-residual rows to ~190 MB in f32 (10 edges at 512x384)
-CALIB_CHUNK_POINTS = 1 << 21
-# each edge's sum over its rows is split into this many batched products: one
-# (7 x 3N) by (3N x 8) product per edge keeps a card to one tile per edge
-CALIB_REDUCE_SPLIT = 128
 
 
 class Edges(NamedTuple):
@@ -165,9 +160,9 @@ def _edge_cache(cfg: BAConfig, X, C, edges: Edges):
 
 
 def _edge_inputs(cfg: BAConfig, X, C, edges: Edges):
-    """(XiT, w0, XjT) of the calibrated solve: :func:`_edge_cache` and frame
-    j's points, channel-major (E, 3, HW). The ray solve makes no such copy:
-    its kernel reads X through ``jj``."""
+    """(XiT, w0, XjT) of the point-alignment solve: :func:`_edge_cache` and
+    frame j's points, channel-major (E, 3, HW). The ray and calibrated
+    solves make no such copy: their kernels read X through ``jj``."""
     XiT, w0 = _edge_cache(cfg, X, C, edges)
     return XiT, w0, X.transpose(1, 2)[edges.jj.long()]
 
@@ -185,10 +180,8 @@ def _kernel_ray_fn(cfg: BAConfig, n_active: Optional[int] = None):
     def fn(T_WC_in, xs):
         ii, jj, XiT, w0, X, active = xs
         Ti = T_WC_in[ii.long()]
-        Tij = lie.sim3_rel(Ti, T_WC_in[jj.long()])
-        sR = Tij[:, 7, None, None] * lie.quat_to_R(Tij[:, 3:7])
         dt = XiT.dtype
-        scal = torch.cat([sR.reshape(-1, 9), Tij[:, :3]], dim=-1).to(dt)
+        scal = lie.sim3_rel_sRt(Ti, T_WC_in[jj.long()]).to(dt)
         B, g = ray_edge_systems(scal, XiT, w0.to(dt), X.to(dt), jj, active,
                                 sigma_ray=float(cfg.sigma_ray), sigma_dist=float(cfg.sigma_dist),
                                 n_active=n_active)
@@ -200,75 +193,31 @@ def _kernel_ray_fn(cfg: BAConfig, n_active: Optional[int] = None):
     return fn
 
 
-def _reduce_rel_systems(D, w, err, P):
-    """Per-edge 7x7 Gram and gradient of residual rows ``D . [I | -skew(P) | P]``
-    summed over the points: D (c, N, R, 3), w and err (c, N, R), P (c, N, 3).
-    Row r of the Jacobian is ``[d_r, P x d_r, d_r . P]``; with the residual as
-    an eighth column, one batched product ``(w J)^T [J | err]``, split along
-    the points (:data:`CALIB_REDUCE_SPLIT`), gives both sums.
-    Returns (B (c, 7, 7), g (c, 7))."""
-    c, N, R, _ = D.shape
-    Pb = P[:, :, None, :].expand_as(D)
-    Ja = torch.cat([D, torch.linalg.cross(Pb, D, dim=-1), (D * Pb).sum(-1, keepdim=True),
-                    err[..., None]], dim=-1)  # (c, N, R, 8)
-    split = math.gcd(N * R, CALIB_REDUCE_SPLIT)
-    Ja = Ja.reshape(c * split, N * R // split, 8)
-    Jw = Ja[..., :7] * w.reshape(c * split, -1, 1)
-    G = (Jw.transpose(1, 2) @ Ja).reshape(c, split, 7, 8).sum(1)
-    return G[..., :7], G[..., 7]
-
-
-def _calib_edge_systems(cfg: BAConfig, img_hw, K, T_WC, ii, jj, idx, XiT, w0, XjT):
+def _calib_edge_systems(cfg: BAConfig, img_hw, K, T_WC, ii, jj, idx, XiT, w0, X, active,
+                        n_active: Optional[int] = None):
     """Calibrated pixel + log-depth edges (calib_proj_kernel,
-    gn_kernels.cu:2295-2608) -> (A (E, 7, 7), gj (E, 7)). Residual
-    [u - u_meas, v - v_meas, log z_j - log z_i] with pinhole K, where
-    (u_meas, v_meas) is the matched pixel ``idx`` in frame i; a point counts
-    when both depths exceed ``depth_eps`` and the projection lies inside the
-    pixel border. Xi enters through its depth alone, which ray-constraining
-    preserves: so the cached insertion-time ``XiT`` serves a solve on
-    constrained pointmaps (the JAX package's invariant)."""
-    height, width = img_hw
-    E, _, N = XiT.shape
+    gn_kernels.cu:2295-2608) -> (A (E, 7, 7), gj (E, 7)), inactive rows 0,
+    through :func:`calib_edge_systems` (the kernel on the card, its plain
+    version on the CPU): per GN iteration ONE launch reduces every live edge
+    from the window poses, each edge's relative Sim(3) formed inside, Xj read
+    from the window's pointmaps X (P, HW, 3) through ``jj``; the 7x7 AdjInv
+    products stay plain tensor code, as around the ray kernel. Residual
+    [u - u_meas, v - v_meas, log z_j
+    - log z_i] with pinhole K, where (u_meas, v_meas) is the matched pixel
+    ``idx`` in frame i. Xi enters through its depth alone, which
+    ray-constraining preserves: so the cached insertion-time ``XiT`` serves
+    a solve on constrained pointmaps (the JAX package's invariant).
+    ``n_active`` (live rows, as the host knows them) sizes the kernel's
+    chunks."""
     dt = XiT.dtype
-    fx, fy, cx, cy = (K[0, 0].to(dt), K[1, 1].to(dt), K[0, 2].to(dt), K[1, 2].to(dt))
-    Ti = T_WC[ii.long()]
-    Tij = lie.sim3_rel(Ti, T_WC[jj.long()]).to(dt)
-    M = _adj_inv_matrix(Ti).to(dt)
-    A = torch.empty((E, 7, 7), dtype=dt, device=XiT.device)
-    gj = torch.empty((E, 7), dtype=dt, device=XiT.device)
-    step = max(1, CALIB_CHUNK_POINTS // max(N, 1))
-    for e0 in range(0, E, step):
-        sl = slice(e0, min(E, e0 + step))
-        P = lie.sim3_act(Tij[sl, None, :], XjT[sl].transpose(1, 2))  # (c, N, 3) in frame i
-        zi = XiT[sl, 2]
-        valid_z = (P[..., 2] > cfg.depth_eps) & (zi > cfg.depth_eps)
-        z_inv = torch.where(valid_z, 1.0 / torch.where(valid_z, P[..., 2], 1.0), 0.0)
-        x_div_z = P[..., 0] * z_inv
-        y_div_z = P[..., 1] * z_inv
-        u = fx * x_div_z + cx
-        v = fy * y_div_z + cy
-        ids = idx[sl].long()
-        u_t = (ids % width).to(dt)
-        v_t = torch.div(ids, width, rounding_mode="floor").to(dt)
-        valid_u = (u > cfg.pixel_border) & (u < width - 1 - cfg.pixel_border)
-        valid_v = (v > cfg.pixel_border) & (v < height - 1 - cfg.pixel_border)
-        zj_log = torch.where(valid_z, torch.log(torch.where(valid_z, P[..., 2], 1.0)), 0.0)
-        zi_log = torch.where(valid_z, torch.log(torch.clamp(zi, min=cfg.depth_eps)), 0.0)
-        err = torch.stack([u - u_t, v - v_t, zj_log - zi_log], dim=-1)  # (c, N, 3)
-        okf = (valid_u & valid_v & valid_z).to(dt) * w0[sl]
-        sw_pix = okf / cfg.sigma_pixel
-        sqrt_w = torch.stack([sw_pix, sw_pix, okf / cfg.sigma_depth], dim=-1)
-        w = huber(sqrt_w * err) * sqrt_w * sqrt_w
-        # D = d[u, v, log z]/dP (gn_kernels.cu:2486-2545)
-        zeros = torch.zeros_like(z_inv)
-        D = torch.stack([
-            torch.stack([fx * z_inv, zeros, -fx * x_div_z * z_inv], dim=-1),
-            torch.stack([zeros, fy * z_inv, -fy * y_div_z * z_inv], dim=-1),
-            torch.stack([zeros, zeros, z_inv], dim=-1),
-        ], dim=-2)  # (c, N, 3, 3)
-        B, g = _reduce_rel_systems(D, w, err, P)
-        A[sl] = torch.einsum("eba,ebc,ecd->ead", M[sl], B, M[sl])
-        gj[sl] = torch.einsum("eba,eb->ea", M[sl], g)
+    intr = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).to(dt)
+    B, g = calib_edge_systems(T_WC.to(dt), intr, XiT, w0.to(dt), X.to(dt), ii, jj, idx, active, img_hw=img_hw,
+                              sigma_pixel=float(cfg.sigma_pixel), sigma_depth=float(cfg.sigma_depth),
+                              pixel_border=float(cfg.pixel_border), depth_eps=float(cfg.depth_eps),
+                              n_active=n_active)
+    M = _adj_inv_matrix(T_WC[ii.long()]).to(dt)
+    A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
+    gj = torch.einsum("eba,eb->ea", M, g)
     return A.to(T_WC.dtype), gj.to(T_WC.dtype)
 
 
@@ -276,8 +225,8 @@ def _point_edge_systems(cfg: BAConfig, T_WC, ii, jj, XiT, w0, XjT):
     """3-D point-alignment edges (point_align_kernel, gn_kernels.cu:1936-2204)
     -> (A (E, 7, 7), gj (E, 7)): residual ``Sim3(T_ij) Xj - Xi`` with D = I,
     Huber-weighted with sqrt-weight ``w0 / sigma_point``. Plain tensor code
-    over chunks of edges, like :func:`_calib_edge_systems` (the JAX package
-    reduces it with XLA too)."""
+    over chunks of edges, like the calibrated edges' plain version (the JAX
+    package reduces it with XLA too)."""
     E, _, N = XiT.shape
     dt = XiT.dtype
     Ti = T_WC[ii.long()]
@@ -293,7 +242,7 @@ def _point_edge_systems(cfg: BAConfig, T_WC, ii, jj, XiT, w0, XjT):
         err = P - XiT[sl].transpose(1, 2)
         sqrt_w = (w0[sl] / cfg.sigma_point)[..., None].expand_as(err)
         w = huber(sqrt_w * err) * sqrt_w * sqrt_w
-        B, g = _reduce_rel_systems(eye.expand(*err.shape, 3), w, err, P)
+        B, g = reduce_rel_systems(eye.expand(*err.shape, 3), w, err, P)
         A[sl] = torch.einsum("eba,ebc,ecd->ead", M[sl], B, M[sl])
         gj[sl] = torch.einsum("eba,eb->ea", M[sl], g)
     return A.to(T_WC.dtype), gj.to(T_WC.dtype)
@@ -574,6 +523,7 @@ def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, 
             break
     if stats is not None:
         stats["iters"] = it
+    spans.count("backend.solve_iters", it)
     return T
 
 
@@ -608,21 +558,28 @@ def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: O
 
 @torch.no_grad()
 def solve_gn_calib(cfg: BAConfig, num_fix: int, img_hw, T_WC, X, C, K, edges: Edges,
-                   odom: OdomEdges, s_bar, stats: Optional[dict] = None, placement=None):
+                   odom: OdomEdges, s_bar, stats: Optional[dict] = None, n_active: Optional[int] = None,
+                   placement=None):
     """Calibrated pixel + log-depth global GN (gauss_newton_calib_cuda,
     gn_kernels.cu:2610-2702; caller global_opt.py:288-341) with the same
-    outer loop, odometry rows, scale priors and edge split as
+    outer loop, odometry rows, scale priors, live-row hint and edge split as
     :func:`solve_gn_rays`. X (P, HW, 3) is already ray-constrained
     (global_opt.py:298-300); K (3, 3)."""
-    XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
+    XiT, w0 = _edge_cache(cfg, X, C, edges)
+    ii, jj = edges.ii.to(torch.int32), edges.jj.to(torch.int32)
 
     def make(lo, hi, d):
-        rows = _rows(lo, hi, d, edges.ii, edges.jj, edges.idx, XiT, w0, XjT)
-        Kd = K.to(d)
-        return lambda T: _calib_edge_systems(cfg, img_hw, Kd, T, *rows)
+        live = None if n_active is None else max(0, min(n_active, hi) - lo)
+        ii_p, jj_p, idx_p, XiT_p, w0_p, act_p = _rows(lo, hi, d, ii, jj, edges.idx, XiT, w0, edges.active)
+        X_p, K_p = X.to(d).contiguous(), K.to(d)
+        return lambda T: _calib_edge_systems(cfg, img_hw, K_p, T, ii_p, jj_p, idx_p, XiT_p, w0_p, X_p, act_p,
+                                             n_active=live)
 
+    launched = calib_edge_kernel.calib_edge_systems.launches
     systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
-    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
+    T = _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
+    spans.count("backend.calib_launches", calib_edge_kernel.calib_edge_systems.launches - launched)
+    return T
 
 
 @torch.no_grad()

@@ -647,10 +647,11 @@ def main(argv=None):
     dev = torch.device(dev)
     out["device"] = "cpu" if dev.type == "cpu" else torch.cuda.get_device_name(dev)
     # the hand-written kernels' launches in this process (each counts on the card only)
-    from ..ops import ba_reduce_kernel, refine_kernel
+    from ..ops import ba_reduce_kernel, calib_edge_kernel, refine_kernel
 
     out["launches"] = {"refine_matches": refine_kernel.refine_matches.launches,
-                       "ray_edge_systems": ba_reduce_kernel.ray_edge_systems.launches}
+                       "ray_edge_systems": ba_reduce_kernel.ray_edge_systems.launches,
+                       "calib_edge_systems": calib_edge_kernel.calib_edge_systems.launches}
     print(json.dumps(out), flush=True)
     return out
 

@@ -35,6 +35,15 @@ the window build's order (``slam/backend.py`` ``_build_window``):
 Inactive rows hold stale nonzero data (another pose, points and weights, a
 jj inside the window), as rows of an evicted pair would.
 
+Calibrated edge cases (``calib_case``) at 384x512 (N = 196,608), as the
+calibrated window solve hands them to its kernel: the window poses T (P, 8),
+intr (4,), XiT (E, 3, N), w0 (E, N), X (P, N, 3), ii and jj (E,) int32, idx
+(E, N) int32, active (E,) bool; the window buckets of a 32-frame session
+(:data:`CALIB_CASES`: 16, 32 and 64 rows, a live prefix of consecutive
+pairs, stale inactive rows). In every frame 2% of the points lie behind the
+camera and 2% project off the pixel border; in every row 1% of frame i's
+depths are 0 and 1% of the weights.
+
 RoPE cases (``rope_case``): q and k as the qkv split's strided views or as
 transposed projections, with tables of the tokens' grid (``rope_pos``).
 
@@ -61,6 +70,11 @@ REFINE_CASES = ("identity_pm20", "collisions", "smooth_warp")
 RAY_N = 288 * 512
 RAY_WINDOW_CASES = ("win16_4p", "win16_8p", "win32_11p")
 RAY_ALL_ACTIVE_CASES = ("all16", "all32", "all128", "all512")
+# calibrated window cases: (rows E, live rows A, window poses P) of a
+# 32-frame session's power-of-two buckets, consecutive pairs, at 384x512
+CALIB_CASES = {"win16": (16, 14, 8), "win32": (32, 30, 16), "win64": (64, 62, 32)}
+CALIB_HW = (384, 512)
+CALIB_K = (517.3, 516.5, 318.6, 255.3)  # TUM fr1 (fx, fy, cx, cy) of its 640x480 frames
 # frames (h, w) the resample kernel shrinks to the 512 side: TUM's 640x480
 # to 384x512, a 16:9 camera at 360p and at 720p to 288x512
 RESAMPLE_SHAPES = ((480, 640), (360, 640), (720, 1280))
@@ -171,6 +185,44 @@ def ray_case(name: str, seed: int, device, n_pts: int = RAY_N, dtype=torch.float
     scal = _sim3_scal(rng, E)
     to = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
     return (to(scal), to(XiT), to(w0), to(X), to(jj, torch.int32), to(active, torch.bool))
+
+
+def calib_case(name: str, seed: int, device, hw=CALIB_HW, dtype=torch.float32):
+    """(T, intr, XiT, w0, X, ii, jj, idx, active) of one calibrated case (see
+    the module docstring): window poses near identity whose quaternions are
+    off unit norm by ~1e-3 (as a keyframe chain's drift), each frame's
+    pointmap backprojected from depths in [2, 6] through :data:`CALIB_K`
+    scaled from 640x480 to ``hw``, matches at the own pixel +-3 px, z_i
+    within 10% of frame j's depth, weights in [0, 2)."""
+    E, A, P = CALIB_CASES[name]
+    h, w = hw
+    n = h * w
+    rng = np.random.default_rng(seed)
+    pairs = A // 2
+    ii, jj = rng.integers(0, P, E), rng.integers(0, P, E)  # stale rows keep whatever they pointed at
+    ii[0:A:2], jj[0:A:2] = np.arange(pairs), np.arange(1, pairs + 1)
+    ii[1:A:2], jj[1:A:2] = np.arange(1, pairs + 1), np.arange(pairs)
+    active = np.arange(E) < A
+    q = np.concatenate([0.02 * rng.standard_normal((P, 3)), np.ones((P, 1))], 1)
+    q *= ((1.0 + 1e-3 * rng.standard_normal((P, 1))) / np.linalg.norm(q, axis=1, keepdims=True))
+    T = np.concatenate([0.05 * rng.standard_normal((P, 3)), q, 1.0 + 0.01 * rng.standard_normal((P, 1))], 1)
+    fx, fy, cx, cy = CALIB_K[0] * w / 640, CALIB_K[1] * h / 480, CALIB_K[2] * w / 640, CALIB_K[3] * h / 480
+    k = np.arange(n)
+    u, v = k % w, k // w
+    z = rng.uniform(2.0, 6.0, (P, n))
+    X = np.stack([z * (u - cx) / fx, z * (v - cy) / fy, z], -1)
+    X[:, n // 20: n // 20 + n // 50, 2] *= -1.0  # behind the camera
+    X[:, n // 10: n // 10 + n // 50, 0] *= 3.0  # projected off the pixel border
+    XiT = X[jj].transpose(0, 2, 1).copy()
+    XiT[:, 2] *= rng.uniform(0.9, 1.1, (E, n))
+    XiT[:, 2, n // 5: n // 5 + n // 100] = 0.0  # frame i's depth under depth_eps
+    du, dv = rng.integers(-3, 4, (E, n)), rng.integers(-3, 4, (E, n))
+    idx = np.clip(v + dv, 0, h - 1) * w + np.clip(u + du, 0, w - 1)
+    w0 = 2.0 * rng.random((E, n))
+    w0[:, : n // 100] = 0.0
+    to = lambda a, dt=dtype: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    return (to(T), to(np.array([fx, fy, cx, cy])), to(XiT), to(w0), to(X), to(ii, torch.int32),
+            to(jj, torch.int32), to(idx, torch.int32), to(active, torch.bool))
 
 
 def ray_counts(jj: torch.Tensor, active: torch.Tensor):

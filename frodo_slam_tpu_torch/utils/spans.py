@@ -32,9 +32,13 @@ its children ``backend.snapshot``, ``backend.pairs``, ``backend.window``,
 Counters: ``tracker.gn_iters`` (the tracking Gauss-Newton's iterations,
 each ending in one host fetch), ``frame.lock_wait_ns`` (the frontend's
 waits for ``SLAM._backend_lock``), ``backend.lock_wait_ns`` (a backend
-task's) and ``model.rope_launches`` (the RoPE kernel's launches in one
+task's), ``model.rope_launches`` (the RoPE kernel's launches in one
 ``encode_image`` or ``decode``, by the calling thread: one an attention on
-the card, 0 on the CPU).
+the card, 0 on the CPU), ``backend.solve_iters`` (a window solve's
+Gauss-Newton iterations, each ending in one host fetch) and
+``backend.calib_launches`` (the calibrated edge kernel's launches in one
+calibrated solve: one an iteration and edge part on the card, 0 on the
+CPU).
 """
 
 from __future__ import annotations

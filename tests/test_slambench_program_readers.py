@@ -1,6 +1,6 @@
 """The benchmark's readers of the program's own spans and counters
 (``slambench/metrics/{preprocess_ms,gn_iters_per_frame,lock_wait_ms,
-queue_wait_ms,kf_task_ms}.py``) on the records of a traced run of a cell at
+queue_wait_ms,kf_task_ms,solve_iters}.py``) on the records of a traced run of a cell at
 tiny width on the CPU (``slambench.run.run_cell`` with ``trace`` on, as
 ``--trace 1`` runs it), and None where the slice holds nothing to read."""
 
@@ -17,7 +17,7 @@ from slambench.tests.tiny import tiny_cell
 torch.set_num_threads(1)
 
 SEED = 2 ** 31 + 7  # more than 32 signed bits hold
-READERS = ["preprocess_ms", "gn_iters_per_frame", "lock_wait_ms", "queue_wait_ms", "kf_task_ms"]
+READERS = ["preprocess_ms", "gn_iters_per_frame", "lock_wait_ms", "queue_wait_ms", "kf_task_ms", "solve_iters"]
 
 
 @pytest.fixture(scope="module", params=["stream288.kf-burst", "tum384.track"])
@@ -44,10 +44,11 @@ def test_each_reader_reads_in_the_cells_its_entry_names(traced):
 def test_backend_readers(traced):
     workload, c, s, listed, out = traced
     if workload == "tum384.track":  # no keyframe after the first: no backend task
-        assert out["kf_task_ms"] is None and out["queue_wait_ms"] is None
+        assert out["kf_task_ms"] is None and out["queue_wait_ms"] is None and out["solve_iters"] is None
         return
     assert out["kf_task_ms"] >= run.load_metric("solve_ms").read(s) > 0
     assert out["queue_wait_ms"] > 0 and out["lock_wait_ms"] >= 0
+    assert 1 <= out["solve_iters"] <= int(c["config"]["local_opt"]["max_iters"])
 
 
 def test_none_without_records_or_without_the_program_spans(monkeypatch):

@@ -27,6 +27,7 @@ from frodo_slam_tpu.slam.system import SLAM as JSLAM
 from frodo_slam_tpu_torch.config import make_config as t_make_config
 from frodo_slam_tpu_torch.models import convert as tconvert
 from frodo_slam_tpu_torch.models import mast3r as tmast3r
+from frodo_slam_tpu_torch.ops import calib_edge_kernel
 from frodo_slam_tpu_torch.ops import lie as tlie
 from frodo_slam_tpu_torch.slam import global_opt as tgo
 from frodo_slam_tpu_torch.slam import tracker as ttr
@@ -87,16 +88,16 @@ def test_calib_edge_systems_match_jax_f64():
     XiT = np.swapaxes(X[ii], 1, 2) * rng.uniform(0.9, 1.1, (6, 1, hw))
     XiT[:, 2, :7] = -1.0  # behind the camera: masked by depth_eps
     w0 = rng.uniform(0, 2, (6, hw)) * (rng.uniform(size=(6, hw)) > 0.2)
-    XjT = np.swapaxes(X[jj], 1, 2)
     cfg = dict(sigma_pixel=1.0, sigma_depth=10.0, pixel_border=-2.0, depth_eps=1e-6)
     jfn = jax.vmap(lambda i, j, ix, Xi, w0_, Xj: jgo._calib_edge_system(
         jgo.BAConfig(**cfg), (h, w), jnp.asarray(K), jnp.asarray(T), i, j, ix, Xi, w0_, Xj))
     Aj, gj = jfn(jnp.asarray(ii), jnp.asarray(jj), jnp.asarray(idx),
-                 jnp.asarray(np.swapaxes(XiT, 1, 2)), jnp.asarray(w0),
-                 jnp.asarray(np.swapaxes(XjT, 1, 2)))
+                 jnp.asarray(np.swapaxes(XiT, 1, 2)), jnp.asarray(w0), jnp.asarray(X[jj]))
     tens = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    # the port reads frame j's points through jj from the window's X
     At, gt = tgo._calib_edge_systems(tgo.BAConfig(**cfg), (h, w), tens(K), tens(T), tens(ii),
-                                     tens(jj), tens(idx), tens(XiT), tens(w0), tens(XjT))
+                                     tens(jj), tens(idx), tens(XiT), tens(w0), tens(X),
+                                     torch.ones(6, dtype=torch.bool))
     assert At.dtype == torch.float64
     for got, want in ((At.numpy(), np.asarray(Aj)), (gt.numpy(), np.asarray(gj))):
         scale = np.abs(want.reshape(6, -1)).max(1)
@@ -112,10 +113,10 @@ def test_calib_edge_chunks_equal_one_step(monkeypatch):
     args = (tgo.BAConfig(), (h, w), torch.from_numpy(K), torch.from_numpy(T),
             torch.from_numpy(d["ii"]), torch.from_numpy(d["jj"]), torch.from_numpy(d["idx"]),
             torch.from_numpy(np.ascontiguousarray(np.swapaxes(X[d["ii"]], 1, 2))),
-            torch.ones(n_kf - 1, h * w, dtype=torch.float64),
-            torch.from_numpy(np.ascontiguousarray(np.swapaxes(X[d["jj"]], 1, 2))))
+            torch.ones(n_kf - 1, h * w, dtype=torch.float64), torch.from_numpy(X),
+            torch.from_numpy(d["active"]))
     A1, g1 = tgo._calib_edge_systems(*args)
-    monkeypatch.setattr(tgo, "CALIB_CHUNK_POINTS", h * w)  # one edge per step
+    monkeypatch.setattr(calib_edge_kernel, "CALIB_CHUNK_POINTS", h * w)  # one edge per step
     A2, g2 = tgo._calib_edge_systems(*args)
     torch.testing.assert_close(A2, A1, rtol=1e-12, atol=0)
     torch.testing.assert_close(g2, g1, rtol=1e-12, atol=0)

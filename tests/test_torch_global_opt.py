@@ -446,6 +446,40 @@ def _jax_solve(solver, kw, T0, X, C, d, o, sb, img_hw):
     return np.asarray(getattr(jgo, f"solve_gn_{solver}")(cfg, 1, *args, *rest))
 
 
+def test_solve_gn_calib_reads_poses_and_xj_through_ii_jj(monkeypatch):
+    """The calibrated solve makes no (E, 3, N) copy of X either: the XjT
+    gather of ``_edge_inputs`` is never reached, and every GN iteration
+    hands the edge reduction the window's poses and pointmaps with ii, jj,
+    idx, active and the live-row hint."""
+    kw, T0, X, C, d, o, sb, img_hw = _solver_case("calib", "rays")
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+
+    def no_gather(*a, **k):
+        raise AssertionError("the calibrated solve gathered XjT")
+
+    calls = []
+    real = tgo.calib_edge_systems
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tgo, "_edge_inputs", no_gather)
+    monkeypatch.setattr(tgo, "calib_edge_systems", spy)
+    X_t = f32(X)
+    stats = {}
+    tgo.solve_gn_calib(tgo.BAConfig(**kw), 1, img_hw, f32(T0), X_t, f32(C), f32(CALIB_K), t_edges(d),
+                       tgo.OdomEdges(**{k: torch.from_numpy(v) for k, v in o.items()}), f32(sb),
+                       stats=stats, n_active=2)
+    assert len(calls) == stats["iters"] >= 1
+    for a, k in calls:
+        T, intr, XiT, w0, Xk, ii, jj, idx, active = a
+        assert Xk is X_t and T.shape == (X.shape[0], 8) and intr.shape == (4,)
+        assert ii.dtype == jj.dtype == torch.int32 and active.dtype == torch.bool
+        assert XiT.shape == (jj.shape[0], 3, X.shape[1]) and idx.shape == w0.shape == (jj.shape[0], X.shape[1])
+        assert k["n_active"] == 2 and k["img_hw"] == img_hw
+
+
 def _port_solve(solver, kw, T0, X, C, d, o, sb, img_hw, solve_f64):
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
     cfg = tgo.BAConfig(**kw, solve_f64=solve_f64)

@@ -11,7 +11,12 @@ tiles at the border, tiles whose seeds spread apart, two batch elements,
 against its plain version in f64 on the window cases of
 tools/kernel_cases.py, N off the tile, zero live rows, P = 1 and stale
 inactive rows (its plain version is held against the JAX package in
-tests/test_torch_global_opt.py). The attention kernel is held
+tests/test_torch_global_opt.py). The calibrated edge kernel is held
+against its plain version in f32 and f64 on the window buckets of
+tools/kernel_cases.py at 384x512 and at an odd N, with masked points of
+every kind, stale inactive rows and a window with no live row (its plain
+version is held against the JAX package in tests/test_torch_calib.py).
+The attention kernel is held
 against its plain version within a bar of the output's largest magnitude
 (its plain version is held against the JAX package in
 tests/test_torch_attention.py).
@@ -23,6 +28,7 @@ import torch
 
 from frodo_slam_tpu_torch.ops import attention_kernel as ak
 from frodo_slam_tpu_torch.ops import ba_reduce_kernel as brk
+from frodo_slam_tpu_torch.ops import calib_edge_kernel as cek
 from frodo_slam_tpu_torch.ops import kernel_build
 from frodo_slam_tpu_torch.ops import refine_kernel as rk
 from frodo_slam_tpu_torch.tools import kernel_cases
@@ -425,6 +431,163 @@ def test_ray_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError):  # the kernel reads contiguous rows
         brk.ray_edge_systems(args[0], args[1].transpose(0, 1).contiguous().transpose(0, 1), *args[2:],
                              **RAY_KW)
+
+
+# ---------------------------------------------------------------------------
+# calib_edge_systems (the backend's calibrated edge normal equations)
+# ---------------------------------------------------------------------------
+
+CALIB_KW = dict(sigma_pixel=1.0, sigma_depth=10.0, pixel_border=-10.0, depth_eps=1e-6)
+
+
+def _calib_args(case, seed, device, hw=kernel_cases.CALIB_HW, dtype=torch.float32, stale=None):
+    """A case of ``kernel_cases.calib_case``; ``stale``: the inactive rows'
+    ii and jj set to it, outside the window, and their data to NaN (the
+    kernel must read neither)."""
+    args = list(kernel_cases.calib_case(case, seed, device, hw, dtype))
+    if stale is not None:
+        dead = ~args[8]
+        args[5][dead] = args[6][dead] = stale
+        for k in (2, 3):
+            args[k][dead] = float("nan")
+    return tuple(args)
+
+
+def test_calib_plain_dead_rows_zero_and_poses_through_ii_jj():
+    """Inactive rows holding NaNs and an ii and jj outside the window are
+    exactly 0; a live row e is the two-frame call's with T and X at
+    (ii[e], jj[e]) (f64: only the batching differs); the weights and masks
+    leave every live row's B finite and symmetric."""
+    hw = (12, 16)
+    args = _calib_args("win16", 0, "cpu", hw, torch.float64, stale=99)
+    T, intr, XiT, w0, X, ii, jj, idx, active = args
+    B, g = cek.calib_edge_systems_plain(*args, img_hw=hw, **CALIB_KW)
+    assert torch.count_nonzero(B[~active]) == 0 and torch.count_nonzero(g[~active]) == 0
+    assert torch.isfinite(B).all() and torch.isfinite(g).all() and torch.equal(B, B.transpose(1, 2))
+    for e in (0, 5, 13):
+        sl = slice(e, e + 1)
+        two = torch.stack([ii[e], jj[e]]).long()
+        Be, ge = cek.calib_edge_systems_plain(T[two], intr, XiT[sl], w0[sl], X[two],
+                                              torch.zeros(1, dtype=torch.int32), torch.ones(1, dtype=torch.int32),
+                                              idx[sl], active[sl], img_hw=hw, **CALIB_KW)
+        torch.testing.assert_close(B[e], Be[0], rtol=1e-12, atol=0)
+        torch.testing.assert_close(g[e], ge[0], rtol=1e-12, atol=0)
+        assert torch.count_nonzero(B[e]) > 0
+
+
+@pytest.mark.parametrize("case", list(kernel_cases.CALIB_CASES))
+def test_calib_cases_are_what_they_say(case):
+    """The seeded calibrated cases of chip_smoke and the card tests: the
+    kernel's types and shapes, consecutive pairs first (rows j = k + 1,
+    then j = k), matches inside the frame, the masked points there, the
+    same case from the same seed."""
+    hw = (24, 32)
+    n = hw[0] * hw[1]
+    E, A, P = kernel_cases.CALIB_CASES[case]
+    args = kernel_cases.calib_case(case, 3, "cpu", hw)
+    T, intr, XiT, w0, X, ii, jj, idx, active = args
+    assert T.shape == (P, 8) and intr.shape == (4,) and XiT.shape == (E, 3, n) and w0.shape == (E, n)
+    assert X.shape == (P, n, 3) and idx.shape == (E, n) and ii.dtype == jj.dtype == idx.dtype == torch.int32
+    assert torch.equal(active, torch.arange(E) < A) and ((ii >= 0) & (ii < P) & (jj >= 0) & (jj < P)).all()
+    assert torch.equal(jj[0:A:2], ii[0:A:2] + 1) and torch.equal(ii[1:A:2], jj[0:A:2])
+    assert torch.equal(jj[1:A:2], ii[0:A:2]) and ((idx >= 0) & (idx < n)).all()
+    norms = T[:, 3:7].norm(dim=1)
+    assert (norms != 1.0).all() and ((norms - 1.0).abs() < 1e-2).all()  # off unit norm, slightly
+    assert (X[..., 2] < 0).any() and (XiT[:, 2] == 0).any() and (w0 == 0).any()
+    for a, b in zip(args, kernel_cases.calib_case(case, 3, "cpu", hw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,n_active,slots", [(196608, 14, 264), (196608, 62, 264), (196608, 2, 132),
+                                              (9021, 30, 264), (100, 1, 264), (0, 4, 264)])
+def test_calib_plan_covers_every_point_in_one_wave(N, n_active, slots):
+    chunks, pts = cek.calib_plan(N, n_active, slots)
+    assert chunks >= 1 and pts >= 1 and pts % (brk.TILE_BYTES // 4) == 0
+    if N:
+        assert (chunks - 1) * pts < N <= chunks * pts
+    if n_active <= slots:
+        assert chunks * n_active <= slots
+
+
+def test_calib_library_path_tracks_source():
+    path = kernel_build.library_path(cek._SRC)
+    assert path.name.startswith("libcalib_edge_systems_") and path.parent == kernel_build.BUILD_DIR
+
+
+def _calib_check(args, hw, dtype, rel, n_active=None):
+    """Kernel vs the f64 plain version: per live edge, |dB| and |dg| within
+    ``rel`` x that edge's largest entry (f32: the ray kernel's bar; f64:
+    rounding only); inactive rows exactly 0; two calls bitwise equal; one
+    counted launch per call."""
+    before = cek.calib_edge_systems.launches
+    Bk, gk = cek.calib_edge_systems(*args, img_hw=hw, **CALIB_KW, n_active=n_active)
+    Bk2, gk2 = cek.calib_edge_systems(*args, img_hw=hw, **CALIB_KW, n_active=n_active)
+    torch.cuda.synchronize()
+    assert cek.calib_edge_systems.launches == before + 2
+    assert Bk.dtype == dtype and gk.dtype == dtype
+    assert torch.equal(Bk, Bk2) and torch.equal(gk, gk2)
+    d64 = tuple(a.double() if a.is_floating_point() else a for a in args)
+    Bp, gp = cek.calib_edge_systems_plain(*d64, img_hw=hw, **CALIB_KW)
+    live = args[8].cpu()
+    for got, want in ((Bk.double(), Bp), (gk.double(), gp)):
+        E = want.shape[0]
+        scale = want.reshape(E, -1).abs().amax(1).clamp(min=1e-30)
+        err = (got - want).reshape(E, -1).abs().amax(1).cpu()
+        assert (err[live] <= rel * scale.cpu()[live]).all(), (err / scale.cpu()).tolist()
+        assert torch.count_nonzero(got[~live.to(got.device)]) == 0
+    return Bk, gk
+
+
+# (case, hw): the window buckets of a 32-frame session at 384x512, and an
+# odd N (97 x 93) whose rows end inside a chunk
+CALIB_CARD_CASES = [("win16", (384, 512)), ("win32", (384, 512)), ("win64", (384, 512)), ("win32", (97, 93))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+@pytest.mark.parametrize("case,hw", CALIB_CARD_CASES)
+def test_calib_kernel_matches_plain_on_card(card, dtype, rel, case, hw):
+    """Points behind the camera, off the pixel border, with z_i = 0 and with
+    w0 = 0 in every row; poses whose quaternions are off unit norm; stale
+    inactive rows whose ii and jj lie outside the window and whose data are
+    NaN."""
+    args = _calib_args(case, 1, card, hw, dtype, stale=1000)
+    A = int(args[8].sum())
+    _calib_check(args, hw, dtype, rel, n_active=A)
+    _calib_check(args, hw, dtype, rel, n_active=1)  # the most chunks a row
+
+
+@pytest.mark.cuda
+def test_calib_kernel_dead_window_on_card(card):
+    """No live row: B = g = 0, still one launch."""
+    args = list(_calib_args("win16", 2, card, (24, 32)))
+    args[8][:] = False
+    Bk, gk = _calib_check(tuple(args), (24, 32), torch.float32, 1e-4, n_active=0)
+    assert torch.count_nonzero(Bk) == 0 and torch.count_nonzero(gk) == 0
+
+
+@pytest.mark.cuda
+def test_calib_kernel_rejects_bad_inputs(card):
+    hw = (24, 32)
+    args = _calib_args("win16", 2, card, hw)
+    kw = dict(img_hw=hw, **CALIB_KW)
+    bad = [
+        (args[0][:, :7],) + args[1:],  # T must be (P, 8)
+        (args[0][:-1],) + args[1:],  # a pose for every frame of X
+        (args[0].double(),) + args[1:],  # one type throughout
+        tuple(a.half() if a.is_floating_point() else a for a in args),  # f32 or f64 only
+        args[:3] + (args[3][:, :10],) + args[4:],
+        args[:4] + (args[4].transpose(1, 2).contiguous(),) + args[5:],  # X must be (P, N, 3)
+        args[:5] + (args[5].long(),) + args[6:],  # ii int32
+        args[:6] + (args[6].long(),) + args[7:],  # jj int32
+        args[:7] + (args[7].long(), args[8]),  # idx int32
+        args[:8] + (args[8].to(torch.uint8),),  # active bool
+        args[:2] + (args[2].transpose(0, 1).contiguous().transpose(0, 1),) + args[3:],  # contiguous rows
+        args[:1] + (args[1].cpu(),) + args[2:],  # one device
+    ]
+    for a in bad:
+        with pytest.raises(ValueError):
+            cek.calib_edge_systems(*a, **kw)
 
 
 # (B, H, Nq, Nk, D): head dims 64 / 32 / 24, N in {48, 64, 100}, Nq != Nk,

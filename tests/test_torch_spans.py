@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from frodo_slam_tpu_torch.config import make_config
 from frodo_slam_tpu_torch.models import mast3r
 from frodo_slam_tpu_torch.slam import tracker
+from frodo_slam_tpu_torch.slam.backend import BackendGraph
 from frodo_slam_tpu_torch.slam.system import SLAM
 from frodo_slam_tpu_torch.utils import spans
 
@@ -70,14 +71,22 @@ def _session(model, single_thread, calib, pipelined):
 @pytest.fixture(scope="module")
 def runs(model):
     """Per session: the records of an unprofiled run, then those of a
-    profiled one with the GN's evaluations counted by a wrapped ``hg_fn``."""
+    profiled one with the GN's evaluations counted by a wrapped ``hg_fn``
+    and each window solve's ``last_solve["iters"]``."""
     real = tracker._gn_loop_fused
     out = {}
     for name, kw in SESSIONS.items():
         spans.clear()
         _session(model, **kw)
         off = spans.records()
-        evals = []
+        evals, solve_iters = [], []
+        solve_name = "solve_window_calib" if kw["calib"] else "solve_window_rays"
+        real_solve = getattr(BackendGraph, solve_name)
+
+        def solve(self, *a, real_solve=real_solve, **k):
+            res = real_solve(self, *a, **k)
+            solve_iters.append(self.last_solve.get("iters"))
+            return res
 
         def counting(cfg, T, hg_fn):
             n = [0]
@@ -90,13 +99,16 @@ def runs(model):
             return res
 
         tracker._gn_loop_fused = counting
+        setattr(BackendGraph, solve_name, solve)
         try:
             spans.clear()
             with profile(activities=[ProfilerActivity.CPU]):
                 results = _session(model, **kw)
         finally:
             tracker._gn_loop_fused = real
-        out[name] = dict(off=off, on=spans.records(), results=results, evals=evals, main=threading.get_native_id())
+            setattr(BackendGraph, solve_name, real_solve)
+        out[name] = dict(off=off, on=spans.records(), results=results, evals=evals, solve_iters=solve_iters,
+                         main=threading.get_native_id())
     spans.clear()
     return out
 
@@ -220,6 +232,22 @@ def test_gn_iterations_counted(runs, session):
     counted = [x["counters"]["tracker.gn_iters"] for x in steps]
     assert counted == r["evals"] and len(counted) == N_FRAMES - 1
     assert all(1 <= n <= OVERRIDES["tracking"]["max_iters"] for n in counted)
+
+
+@pytest.mark.parametrize("session", list(SESSIONS))
+def test_solve_iterations_and_calib_launches_counted(runs, session):
+    """Each window solve's span carries ``backend.solve_iters``, its
+    ``last_solve["iters"]``; the calibrated solve's ``backend.calib_launches``
+    is 0 on the CPU (the plain version launches no kernel), and the ray
+    solve has none."""
+    r = runs[session]
+    calib = SESSIONS[session]["calib"]
+    name = "backend.solve_calib" if calib else "backend.solve_rays"
+    solves = sorted((x for x in r["on"] if x["name"] == name), key=lambda x: x["start_ns"])
+    assert solves and [x["counters"]["backend.solve_iters"] for x in solves] == r["solve_iters"]
+    assert all(1 <= n <= OVERRIDES["local_opt"]["max_iters"] for n in r["solve_iters"])
+    launches = [x["counters"].get("backend.calib_launches") for x in solves]
+    assert launches == ([0] * len(solves) if calib else [None] * len(solves))
 
 
 @pytest.mark.parametrize("session", list(SESSIONS))
