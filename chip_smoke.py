@@ -940,8 +940,8 @@ def _tiny_calib(device):
     slam = SLAM(_backend_cfg(use_calib=True, max_keyframes=8, max_edges=8, max_odom_edges=8), model,
                 (h, w), calib=TINY_K, use_backend=True, single_thread=True, device=device)
     solves = []
-    real = slam.backend.solve_window_calib
-    slam.backend.solve_window_calib = lambda *a, **k: solves.append(1) or real(*a, **k)
+    real = slam.backend.solve_window
+    slam.backend.solve_window = lambda *a, **k: solves.append(1) or real(*a, **k)
     spans.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         flags = [slam.grab_rgb(img, timestamp=float(i))[::2] for i in range(5)]
@@ -1010,7 +1010,7 @@ def _tiny_vio(device, work):
     s_ring = float(pgo_mod.pgo_optimize(ring)[1])
     n = slam.store.n_size
     s_bar = np.where(np.arange(n) % 2 == 1, 0.8, -1.0).astype(np.float32)  # every other target live
-    uniq, p, T_new = slam.backend.solve_window_rays(slam.store, s_bar)
+    uniq, p, T_new = slam.backend.solve_window(slam.store, s_bar)
     extra = T_new[:p].cpu().numpy()
     ckpt = save_slam_state(slam, str(work / f"vio_tiny_{device.type}.npz"))
     back = build()
@@ -1095,7 +1095,7 @@ def _instrument(slam, rec, timed):
 
     be.add_consecutive_half = wrap("decode_match", be.add_consecutive_half)
     be.add_factors = wrap("decode_match", be.add_factors)
-    be.solve_window_rays = wrap("solve", be.solve_window_rays)
+    be.solve_window = wrap("solve", be.solve_window)
 
 
 def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phase="backend_main",
@@ -1130,7 +1130,7 @@ def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phas
         n = slam.store.n_total
         ii = [n - 2, 2, 0][:extra_pairs]
         slam.backend.add_factors(slam.store, ii, [n - 1] * len(ii))
-        slam.backend.solve_GN_rays(slam.store)
+        slam.backend.solve_GN(slam.store)
     torch.cuda.synchronize()
     launches = read_counts()
     logging.getLogger("frodo_slam_tpu_torch").removeHandler(failures)
@@ -1389,8 +1389,7 @@ def phase_dataset_main(n_images=24, work=None):
     args = types.SimpleNamespace(dataset=str(seq), config=str(cfg), calib=None, save_as="chip_smoke",
                                  no_viz=True, viz=False, weights=None, no_retrieval=True, max_frames=None)
     rec = dict(frame_ms=[], solve_ms=[], gn_iters=[], edge_rows=[], ray_solves=0)
-    real = dict(grab=SLAM.grab_rgb, calib=BackendGraph.solve_window_calib,
-                rays=BackendGraph.solve_window_rays)
+    real = dict(grab=SLAM.grab_rgb, solve=BackendGraph.solve_window)
 
     def grab(self, *a, **k):  # ends in the frame's flags fetch: no sync needed
         t = time.perf_counter()
@@ -1398,22 +1397,20 @@ def phase_dataset_main(n_images=24, work=None):
         rec["frame_ms"].append((time.perf_counter() - t) * 1e3)
         return out
 
-    def solve_calib(self, *a, **k):
+    def solve(self, *a, **k):
+        if self.K is None:
+            rec["ray_solves"] += 1
+            return real["solve"](self, *a, **k)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = real["calib"](self, *a, **k)
+        out = real["solve"](self, *a, **k)
         torch.cuda.synchronize()
         rec["solve_ms"].append((time.perf_counter() - t) * 1e3)
         rec["gn_iters"].append(self.last_solve["iters"] if out is not None else 0)
         rec["edge_rows"].append(self.last_solve["edge_rows"] if out is not None else 0)
         return out
 
-    def solve_rays(self, *a, **k):
-        rec["ray_solves"] += 1
-        return real["rays"](self, *a, **k)
-
-    SLAM.grab_rgb, BackendGraph.solve_window_calib, BackendGraph.solve_window_rays = (
-        grab, solve_calib, solve_rays)
+    SLAM.grab_rgb, BackendGraph.solve_window = grab, solve
     cwd, env = os.getcwd(), os.environ.get("FRODO_RANDOM_SHARE_DECODER")
     os.environ["FRODO_RANDOM_SHARE_DECODER"] = "1"  # identical frames track (loader.py)
     try:
@@ -1427,8 +1424,7 @@ def phase_dataset_main(n_images=24, work=None):
         launches = read_counts()
     finally:
         os.chdir(cwd)
-        SLAM.grab_rgb, BackendGraph.solve_window_calib, BackendGraph.solve_window_rays = (
-            real["grab"], real["calib"], real["rays"])
+        SLAM.grab_rgb, BackendGraph.solve_window = real["grab"], real["solve"]
         if env is None:
             os.environ.pop("FRODO_RANDOM_SHARE_DECODER", None)
         else:
@@ -1489,7 +1485,7 @@ def phase_realtime_main(n_frames=12, work=None):
     args = types.SimpleNamespace(dataset=str(seq), config=str(cfg), calib=None, save_as=None, no_viz=True,
                                  viz=False, weights=None, no_retrieval=True, max_frames=None)
     rec = dict(frame_ms=[], solves=[], slam=None)
-    real = dict(grab=SLAM.grab_rgb_pipelined, rays=BackendGraph.solve_window_rays)
+    real = dict(grab=SLAM.grab_rgb_pipelined, solve=BackendGraph.solve_window)
 
     def grab(self, *a, **k):  # host time of each call (its flags arrive a frame late)
         rec["slam"] = self
@@ -1498,14 +1494,14 @@ def phase_realtime_main(n_frames=12, work=None):
         rec["frame_ms"].append((time.perf_counter() - t) * 1e3)
         return out
 
-    def solve_rays(self, *a, **k):
+    def solve(self, *a, **k):
         t = time.perf_counter()
-        out = real["rays"](self, *a, **k)  # ends in a host fetch
+        out = real["solve"](self, *a, **k)  # ends in a host fetch
         rec["solves"].append(dict(wall_ms=(time.perf_counter() - t) * 1e3, solve_f64=self.cfg.solve_f64,
                                   **({} if out is None else self.last_solve)))
         return out
 
-    SLAM.grab_rgb_pipelined, BackendGraph.solve_window_rays = grab, solve_rays
+    SLAM.grab_rgb_pipelined, BackendGraph.solve_window = grab, solve
     cwd, env = os.getcwd(), os.environ.get("FRODO_RANDOM_SHARE_DECODER")
     os.environ["FRODO_RANDOM_SHARE_DECODER"] = "1"  # identical frames track (loader.py)
     try:
@@ -1519,7 +1515,7 @@ def phase_realtime_main(n_frames=12, work=None):
         launches = read_counts()
     finally:
         os.chdir(cwd)
-        SLAM.grab_rgb_pipelined, BackendGraph.solve_window_rays = real["grab"], real["rays"]
+        SLAM.grab_rgb_pipelined, BackendGraph.solve_window = real["grab"], real["solve"]
         if env is None:
             os.environ.pop("FRODO_RANDOM_SHARE_DECODER", None)
         else:

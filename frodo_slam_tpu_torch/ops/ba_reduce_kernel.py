@@ -12,7 +12,7 @@ point with w0 = 0 (masked, or an all-zero pad point) contributes exactly 0.
 Xj of row e is ``X[jj[e]]``, read from the window's pointmaps X (P, N, 3)
 as they are; a row with ``active[e]`` False reads nothing and gets B = g = 0
 exactly. The caller pushes B and g through AdjInv(T_i)
-(``global_opt._kernel_ray_fn``).
+(``global_opt._edge_systems``).
 
 Which TPU kernel it replaces: ``frodo_slam_tpu/ops/ba_reduce_pallas.py``
 ``_ray_reduce_kernel`` (pallas_call at :201), driven by

@@ -15,7 +15,7 @@ calib_proj_kernel, gn_kernels.cu:2295-2608). Xi enters through its depth
 z_i = XiT[e, 2] alone. Xj of row e is ``X[jj[e]]``, read from the window's
 pointmaps X (P, N, 3) as they are; a row with ``active[e]`` False reads
 nothing (nor its ii and jj) and gets B = g = 0 exactly. The caller pushes
-B and g through AdjInv(T_i) (``global_opt._calib_edge_systems``).
+B and g through AdjInv(T_i) (``global_opt._edge_systems``).
 
 Which TPU kernel it replaces: none. The JAX package reduces these edges with
 XLA (``frodo_slam_tpu/slam/global_opt.py`` ``_calib_edge_system``), and the
@@ -46,22 +46,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional
 
 import torch
 
 from . import kernel_build, lie
 from .ba_reduce_kernel import TILE_BYTES, edge_tickets, ray_plan
+from .normal_eqs import edge_chunks, reduce_rel_systems
 from .robust import HUBER_K, huber
 
 _SRC = kernel_build.CSRC / "calib_edge_systems.cu"
-# points per step of the plain version: bounds its (c, N, 3, 8)
-# Jacobian-and-residual rows to ~190 MB in f32 (10 edges at 512x384)
-CALIB_CHUNK_POINTS = 1 << 21
-# each edge's sum over its rows is split into this many batched products: one
-# (7 x 3N) by (3N x 8) product per edge keeps a card to one tile per edge
-CALIB_REDUCE_SPLIT = 128
 # Operations per counted point of the kernel's arithmetic, a multiply-add
 # counted as two (the relative pose, ~110 an edge and CTA, left out): P
 # (18), depth tests (2), reciprocal, projection and pixel
@@ -72,28 +66,10 @@ CALIB_REDUCE_SPLIT = 128
 FLOPS_PER_POINT = 18 + 2 + 7 + 4 + 4 + 6 + 20 + 6 + 19 + 16 + 3 + 2 * 52 + 2 * 16
 
 
-def reduce_rel_systems(D, w, err, P):
-    """Per-edge 7x7 Gram and gradient of residual rows ``D . [I | -skew(P) | P]``
-    summed over the points: D (c, N, R, 3), w and err (c, N, R), P (c, N, 3).
-    Row r of the Jacobian is ``[d_r, P x d_r, d_r . P]``; with the residual as
-    an eighth column, one batched product ``(w J)^T [J | err]``, split along
-    the points (:data:`CALIB_REDUCE_SPLIT`), gives both sums.
-    Returns (B (c, 7, 7), g (c, 7))."""
-    c, N, R, _ = D.shape
-    Pb = P[:, :, None, :].expand_as(D)
-    Ja = torch.cat([D, torch.linalg.cross(Pb, D, dim=-1), (D * Pb).sum(-1, keepdim=True),
-                    err[..., None]], dim=-1)  # (c, N, R, 8)
-    split = math.gcd(N * R, CALIB_REDUCE_SPLIT)
-    Ja = Ja.reshape(c * split, N * R // split, 8)
-    Jw = Ja[..., :7] * w.reshape(c * split, -1, 1)
-    G = (Jw.transpose(1, 2) @ Ja).reshape(c, split, 7, 8).sum(1)
-    return G[..., :7], G[..., 7]
-
-
 def calib_edge_systems_plain(T, intr, XiT, w0, X, ii, jj, idx, active, *, img_hw, sigma_pixel: float,
                              sigma_depth: float, pixel_border: float, depth_eps: float):
     """Plain PyTorch version, on any device, in the inputs' type: chunked
-    tensor code over :data:`CALIB_CHUNK_POINTS` points a step.
+    tensor code over :data:`~.normal_eqs.EDGE_CHUNK_POINTS` points a step.
 
     T (P, 8), intr (4,), XiT (E, 3, N), w0 (E, N), X (P, N, 3), ii and jj
     (E,) int, idx (E, N) int, active (E,) bool; ``img_hw`` (height, width).
@@ -105,9 +81,7 @@ def calib_edge_systems_plain(T, intr, XiT, w0, X, ii, jj, idx, active, *, img_hw
     fx, fy, cx, cy = intr.unbind()
     B = torch.zeros((E, 7, 7), dtype=dt, device=dev)
     g = torch.zeros((E, 7), dtype=dt, device=dev)
-    step = max(1, CALIB_CHUNK_POINTS // max(N, 1))
-    for e0 in range(0, E, step):
-        sl = slice(e0, min(E, e0 + step))
+    for sl in edge_chunks(E, N):
         live = active[sl]
         i, j = torch.where(live, ii[sl], 0).long(), torch.where(live, jj[sl], 0).long()
         sRt = lie.sim3_rel_sRt(T[i], T[j])

@@ -9,13 +9,27 @@ kernels exploit row by row (gn_kernels.cu:749-858).
 The JAX package scalar-expands the tiny R/3/3 dims because einsums over them
 padded to the TPU's matrix tile; on the card the plain per-point product and
 one einsum per output are the natural form, with the same outputs.
+
+The backend's plain per-edge reductions (the calibrated edges' plain
+version, the point-alignment residual) share :func:`reduce_rel_systems` and
+its chunking over edges (:func:`edge_chunks`); the tracker's and the window
+solve's Cholesky share :func:`safe_cholesky`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 import torch
+
+# points per step of the chunked per-edge reductions: bounds their
+# (c, N, R, 8) Jacobian-and-residual rows to ~190 MB in f32 (10 edges at
+# 512x384, R = 3)
+EDGE_CHUNK_POINTS = 1 << 21
+# each edge's sum over its rows is split into this many batched products: one
+# (7 x 3N) by (3N x 8) product per edge keeps a card to one tile per edge
+REL_REDUCE_SPLIT = 128
 
 
 def reduce_sim3_system(
@@ -73,3 +87,38 @@ def ray_dist_drd_cols(r: torch.Tensor, d: torch.Tensor) -> List[List[torch.Tenso
 def cols_from_array(drd: torch.Tensor) -> List[List[torch.Tensor]]:
     """(n, R, 3) materialized D -> nested column view."""
     return [[drd[:, d, a] for a in range(3)] for d in range(drd.shape[1])]
+
+
+def edge_chunks(n_edges: int, n_pts: int) -> List[slice]:
+    """Slices of ``n_edges`` edges of ``n_pts`` points each, at most
+    :data:`EDGE_CHUNK_POINTS` points (and at least one edge) a slice."""
+    step = max(1, EDGE_CHUNK_POINTS // max(n_pts, 1))
+    return [slice(e0, min(n_edges, e0 + step)) for e0 in range(0, n_edges, step)]
+
+
+def reduce_rel_systems(D, w, err, P):
+    """Per-edge 7x7 Gram and gradient of residual rows ``D . [I | -skew(P) | P]``
+    summed over the points: D (c, N, R, 3), w and err (c, N, R), P (c, N, 3).
+    Row r of the Jacobian is ``[d_r, P x d_r, d_r . P]``; with the residual as
+    an eighth column, one batched product ``(w J)^T [J | err]``, split along
+    the points (:data:`REL_REDUCE_SPLIT`), gives both sums.
+    Returns (B (c, 7, 7), g (c, 7))."""
+    c, N, R, _ = D.shape
+    Pb = P[:, :, None, :].expand_as(D)
+    Ja = torch.cat([D, torch.linalg.cross(Pb, D, dim=-1), (D * Pb).sum(-1, keepdim=True),
+                    err[..., None]], dim=-1)  # (c, N, R, 8)
+    split = math.gcd(N * R, REL_REDUCE_SPLIT)
+    Ja = Ja.reshape(c * split, N * R // split, 8)
+    Jw = Ja[..., :7] * w.reshape(c * split, -1, 1)
+    G = (Jw.transpose(1, 2) @ Ja).reshape(c, split, 7, 8).sum(1)
+    return G[..., :7], G[..., 7]
+
+
+def safe_cholesky(H: torch.Tensor, eye: torch.Tensor):
+    """(L, ok): a Cholesky that never raises. A non-PD or non-finite H gives
+    ok False and ``eye``, the identity of H's size and type, in place of L
+    (JAX's cholesky returns NaN there); the caller builds ``eye``, once a
+    solve where it can."""
+    L, info = torch.linalg.cholesky_ex(H)
+    ok = (info == 0) & torch.all(torch.isfinite(L))
+    return torch.where(ok, L, eye), ok

@@ -168,11 +168,13 @@ class BackendGraph:
     a dp rank: without a ``placement`` that is ``[model]`` and its
     parameters' device is the graph's; with one, the graph lives on
     ``placement.solve_device`` and the replicas are per-rank copies of the
-    model's decoder and heads."""
+    model's decoder and heads. ``K`` (3, 3), the calibration, picks the
+    window solve's residual once: with it the calibrated pixel/log-depth
+    solve, without it the ray alignment (:meth:`solve_window`)."""
 
     def __init__(self, model, cfg: BAConfig, match_cfg: tuple, img_hw: Tuple[int, int],
                  max_edges: int = 64, max_odom: int = 64, Q_conf: float = 1.5,
-                 min_match_frac: float = 0.1, placement=None):
+                 min_match_frac: float = 0.1, placement=None, K: Optional[torch.Tensor] = None):
         self.model = model
         self.placement = placement
         if placement is None:
@@ -181,6 +183,7 @@ class BackendGraph:
         else:
             self.replicas = backend_replicas(model, placement)
             self.device = placement.solve_device
+        self.K = None if K is None else K.to(self.device)
         self.cfg = cfg
         self.match_cfg = match_cfg
         self.img_hw = img_hw
@@ -413,56 +416,36 @@ class BackendGraph:
                                       [k % store.capacity for k in free])
         return store
 
-    def solve_window_rays(self, store: KeyframeStore, s_bar: Optional[np.ndarray] = None):
-        """Build the compacted window and run the ray-alignment GN
-        (global_opt.py:226-286). Returns ``(uniq, p, T_new)`` without writing
+    def solve_window(self, store: KeyframeStore, s_bar: Optional[np.ndarray] = None):
+        """Build the compacted window and run its GN (global_opt.py:226-341):
+        with the graph's ``K`` the calibrated solve, the window's points
+        constrained to their pixel rays first (:298-300); without, the
+        ray-alignment solve. Returns ``(uniq, p, T_new)`` without writing
         back, so a threaded caller can merge into a store that advanced
         meanwhile; None when there is nothing to optimize."""
-        with spans.span("backend.window"):
-            win = self._build_window(store, s_bar)
-        if win is None:
-            return None
-        uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
-        stats: dict = {}
-        # the live rows are the first 2 * len(_pairs): the kernel's sizing hint
-        with spans.span("backend.solve_rays"):
-            T_new = solve_gn_rays(self.cfg, self.cfg.pin, T_win, X_win, C_win, edges_win,
-                                  odom_win, sb, stats=stats, n_active=2 * len(self._pairs),
-                                  placement=self.placement)
-        self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
-        return uniq, p, T_new
-
-    def solve_window_calib(self, store: KeyframeStore, K: torch.Tensor,
-                           s_bar: Optional[np.ndarray] = None):
-        """Calibrated pixel/log-depth window solve (global_opt.py:288-341):
-        the window's points are constrained to their pixel rays first
-        (:298-300). Same return contract as :meth:`solve_window_rays`."""
         with spans.span("backend.window"):
             win = self._build_window(store, s_bar)
             if win is None:
                 return None
             uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = win
-            K = K.to(self.device)
-            X_win = constrain_points_to_ray(self.img_hw, X_win, K)
+            if self.K is not None:
+                X_win = constrain_points_to_ray(self.img_hw, X_win, self.K)
         stats: dict = {}
-        with spans.span("backend.solve_calib"):
-            T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, K,
-                                   edges_win, odom_win, sb, stats=stats, n_active=2 * len(self._pairs),
-                                   placement=self.placement)
+        # the live rows are the first 2 * len(_pairs): the kernels' sizing hint
+        kw = dict(stats=stats, n_active=2 * len(self._pairs), placement=self.placement)
+        with spans.span("backend.solve_rays" if self.K is None else "backend.solve_calib"):
+            if self.K is None:
+                T_new = solve_gn_rays(self.cfg, self.cfg.pin, T_win, X_win, C_win, edges_win, odom_win, sb, **kw)
+            else:
+                T_new = solve_gn_calib(self.cfg, self.cfg.pin, self.img_hw, T_win, X_win, C_win, self.K,
+                                       edges_win, odom_win, sb, **kw)
         self.last_solve = dict(stats, poses=p, edge_rows=int(edges_win.ii.shape[0]))
         return uniq, p, T_new
 
-    def solve_GN_calib(self, store: KeyframeStore, K: torch.Tensor,
-                       s_bar: Optional[np.ndarray] = None) -> KeyframeStore:
-        """Calibrated window solve + immediate write-back."""
-        out = self.solve_window_calib(store, K, s_bar)
-        if out is None:
-            return store
-        return self._write_back(store, *out)
-
-    def solve_GN_rays(self, store: KeyframeStore, s_bar: Optional[np.ndarray] = None) -> KeyframeStore:
-        """Window solve + immediate write-back (the serialized path)."""
-        out = self.solve_window_rays(store, s_bar)
+    def solve_GN(self, store: KeyframeStore, s_bar: Optional[np.ndarray] = None) -> KeyframeStore:
+        """:meth:`solve_window` and the immediate write-back (the serialized
+        path)."""
+        out = self.solve_window(store, s_bar)
         if out is None:
             return store
         return self._write_back(store, *out)

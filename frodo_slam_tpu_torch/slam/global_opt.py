@@ -17,10 +17,12 @@ Since ``Ji = -Jj``, each directed edge's 14x14 Hessian is
 relative-pose Jacobian and ``M = AdjInv(T_i)``: only B and its gradient are
 reduced over the points, by a Hopper kernel (its plain version on a CPU
 tensor): the ray edges by :mod:`..ops.ba_reduce_kernel`, the calibrated
-edges, which JAX reduces with XLA, by :mod:`..ops.calib_edge_kernel`
-(:func:`_calib_edge_systems`). The dense (7P x 7P) system is assembled
-on the device and Cholesky-solved there: in f64 by default (the reference's
-double Eigen solve, and the JAX package under x64), or, with
+edges, which JAX reduces with XLA, by :mod:`..ops.calib_edge_kernel`. Each
+residual (:func:`_ray_residual`, :func:`_calib_residual`,
+:func:`_point_residual`) hands back B and g, and one seam,
+:func:`_edge_systems`, applies M to them. The dense (7P x 7P) system is
+assembled on the device and Cholesky-solved there: in f64 by default (the
+reference's double Eigen solve, and the JAX package under x64), or, with
 ``BAConfig.solve_f64`` off (``tpu.x64_eval: false``, the real-time
 configurations), in f32 with a larger damping and one step of iterative
 refinement, as the JAX package solves with x64 off.
@@ -42,13 +44,15 @@ in row order, where the assembly and the Cholesky run once.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..ops import calib_edge_kernel, lie
 from ..ops.ba_reduce_kernel import ray_edge_systems
-from ..ops.calib_edge_kernel import CALIB_CHUNK_POINTS, calib_edge_systems, reduce_rel_systems
+from ..ops.calib_edge_kernel import calib_edge_systems
+from ..ops.normal_eqs import edge_chunks, reduce_rel_systems, safe_cholesky
 from ..ops.robust import huber
 from ..parallel.mesh import edge_parts
 from ..utils import spans
@@ -159,93 +163,106 @@ def _edge_cache(cfg: BAConfig, X, C, edges: Edges):
     return _edges_pre(cfg, X, C, edges)
 
 
-def _edge_inputs(cfg: BAConfig, X, C, edges: Edges):
-    """(XiT, w0, XjT) of the point-alignment solve: :func:`_edge_cache` and
-    frame j's points, channel-major (E, 3, HW). The ray and calibrated
-    solves make no such copy: their kernels read X through ``jj``."""
-    XiT, w0 = _edge_cache(cfg, X, C, edges)
-    return XiT, w0, X.transpose(1, 2)[edges.jj.long()]
+def _xj_rows(X, jj):
+    """Frame j's points of each edge row, channel-major (E, 3, HW): the
+    point residual's one copy a solve. The ray and calibrated residuals make
+    none: their kernels read X through ``jj``."""
+    return X.transpose(1, 2)[jj.long()]
 
 
-def _kernel_ray_fn(cfg: BAConfig, n_active: Optional[int] = None):
-    """Ray edge systems through :func:`ray_edge_systems` (the kernel on the
-    card, its plain version on the CPU): per GN iteration ONE launch reduces
-    every live edge, Xj read from the window's pointmaps X (P, HW, 3) through
-    ``jj``; the per-edge Sim(3) scalars and the 7x7 AdjInv products stay
-    plain tensor code (they lie outside the TPU kernel too). ``n_active``
-    (live rows, as the host knows them) sizes the kernel's chunks. Returns
-    ``fn(T, xs) -> (A (E, 7, 7), gj (E, 7))`` with xs = (ii, jj, XiT, w0, X,
-    active); inactive rows are 0."""
-
-    def fn(T_WC_in, xs):
-        ii, jj, XiT, w0, X, active = xs
-        Ti = T_WC_in[ii.long()]
-        dt = XiT.dtype
-        scal = lie.sim3_rel_sRt(Ti, T_WC_in[jj.long()]).to(dt)
-        B, g = ray_edge_systems(scal, XiT, w0.to(dt), X.to(dt), jj, active,
-                                sigma_ray=float(cfg.sigma_ray), sigma_dist=float(cfg.sigma_dist),
-                                n_active=n_active)
-        M = _adj_inv_matrix(Ti).to(dt)
-        A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
-        gj = torch.einsum("eba,eb->ea", M, g)
-        return A.to(T_WC_in.dtype), gj.to(T_WC_in.dtype)
-
-    return fn
+def _ray_residual(cfg: BAConfig, T, Ti, ii, jj, XiT, w0, active, X, n_active=None):
+    """Ray edges (gn_kernels.cu:576-907) -> (B (E, 7, 7), g (E, 7)) through
+    :func:`ray_edge_systems` (the kernel on the card, its plain version on
+    the CPU): ONE launch reduces every live edge, Xj read from the window's
+    pointmaps X (P, HW, 3) through ``jj``; each edge's relative [sR | t] is
+    plain tensor code (it lies outside the TPU kernel too)."""
+    dt = XiT.dtype
+    scal = lie.sim3_rel_sRt(Ti, T[jj.long()]).to(dt)
+    return ray_edge_systems(scal, XiT, w0.to(dt), X.to(dt), jj, active,
+                            sigma_ray=float(cfg.sigma_ray), sigma_dist=float(cfg.sigma_dist),
+                            n_active=n_active)
 
 
-def _calib_edge_systems(cfg: BAConfig, img_hw, K, T_WC, ii, jj, idx, XiT, w0, X, active,
-                        n_active: Optional[int] = None):
+def _calib_residual(cfg: BAConfig, img_hw, T, Ti, ii, jj, idx, XiT, w0, active, X, K, n_active=None):
     """Calibrated pixel + log-depth edges (calib_proj_kernel,
-    gn_kernels.cu:2295-2608) -> (A (E, 7, 7), gj (E, 7)), inactive rows 0,
-    through :func:`calib_edge_systems` (the kernel on the card, its plain
-    version on the CPU): per GN iteration ONE launch reduces every live edge
-    from the window poses, each edge's relative Sim(3) formed inside, Xj read
-    from the window's pointmaps X (P, HW, 3) through ``jj``; the 7x7 AdjInv
-    products stay plain tensor code, as around the ray kernel. Residual
-    [u - u_meas, v - v_meas, log z_j
-    - log z_i] with pinhole K, where (u_meas, v_meas) is the matched pixel
-    ``idx`` in frame i. Xi enters through its depth alone, which
-    ray-constraining preserves: so the cached insertion-time ``XiT`` serves
-    a solve on constrained pointmaps (the JAX package's invariant).
-    ``n_active`` (live rows, as the host knows them) sizes the kernel's
-    chunks."""
+    gn_kernels.cu:2295-2608) -> (B (E, 7, 7), g (E, 7)) through
+    :func:`calib_edge_systems` (the kernel on the card, its plain version on
+    the CPU): ONE launch reduces every live edge from the window poses, each
+    edge's relative Sim(3) formed inside, Xj read through ``jj``. Residual
+    [u - u_meas, v - v_meas, log z_j - log z_i] with pinhole K (3, 3), where
+    (u_meas, v_meas) is the matched pixel ``idx`` in frame i. Xi enters
+    through its depth alone, which ray-constraining preserves: so the cached
+    insertion-time ``XiT`` serves a solve on constrained pointmaps (the JAX
+    package's invariant)."""
     dt = XiT.dtype
     intr = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).to(dt)
-    B, g = calib_edge_systems(T_WC.to(dt), intr, XiT, w0.to(dt), X.to(dt), ii, jj, idx, active, img_hw=img_hw,
+    return calib_edge_systems(T.to(dt), intr, XiT, w0.to(dt), X.to(dt), ii, jj, idx, active, img_hw=img_hw,
                               sigma_pixel=float(cfg.sigma_pixel), sigma_depth=float(cfg.sigma_depth),
                               pixel_border=float(cfg.pixel_border), depth_eps=float(cfg.depth_eps),
                               n_active=n_active)
-    M = _adj_inv_matrix(T_WC[ii.long()]).to(dt)
-    A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
-    gj = torch.einsum("eba,eb->ea", M, g)
-    return A.to(T_WC.dtype), gj.to(T_WC.dtype)
 
 
-def _point_edge_systems(cfg: BAConfig, T_WC, ii, jj, XiT, w0, XjT):
+def _point_residual(cfg: BAConfig, T, Ti, ii, jj, XiT, w0, XjT, n_active=None):
     """3-D point-alignment edges (point_align_kernel, gn_kernels.cu:1936-2204)
-    -> (A (E, 7, 7), gj (E, 7)): residual ``Sim3(T_ij) Xj - Xi`` with D = I,
+    -> (B (E, 7, 7), g (E, 7)): residual ``Sim3(T_ij) Xj - Xi`` with D = I,
     Huber-weighted with sqrt-weight ``w0 / sigma_point``. Plain tensor code
     over chunks of edges, like the calibrated edges' plain version (the JAX
     package reduces it with XLA too)."""
     E, _, N = XiT.shape
     dt = XiT.dtype
-    Ti = T_WC[ii.long()]
-    Tij = lie.sim3_rel(Ti, T_WC[jj.long()]).to(dt)
-    M = _adj_inv_matrix(Ti).to(dt)
-    A = torch.empty((E, 7, 7), dtype=dt, device=XiT.device)
-    gj = torch.empty((E, 7), dtype=dt, device=XiT.device)
+    Tij = lie.sim3_rel(Ti, T[jj.long()]).to(dt)
+    B = torch.empty((E, 7, 7), dtype=dt, device=XiT.device)
+    g = torch.empty((E, 7), dtype=dt, device=XiT.device)
     eye = torch.eye(3, dtype=dt, device=XiT.device)
-    step = max(1, CALIB_CHUNK_POINTS // max(N, 1))
-    for e0 in range(0, E, step):
-        sl = slice(e0, min(E, e0 + step))
+    for sl in edge_chunks(E, N):
         P = lie.sim3_act(Tij[sl, None, :], XjT[sl].transpose(1, 2))  # (c, N, 3) in frame i
         err = P - XiT[sl].transpose(1, 2)
         sqrt_w = (w0[sl] / cfg.sigma_point)[..., None].expand_as(err)
         w = huber(sqrt_w * err) * sqrt_w * sqrt_w
-        B, g = reduce_rel_systems(eye.expand(*err.shape, 3), w, err, P)
-        A[sl] = torch.einsum("eba,ebc,ecd->ead", M[sl], B, M[sl])
-        gj[sl] = torch.einsum("eba,eb->ea", M[sl], g)
-    return A.to(T_WC.dtype), gj.to(T_WC.dtype)
+        B[sl], g[sl] = reduce_rel_systems(eye.expand(*err.shape, 3), w, err, P)
+    return B, g
+
+
+def _edge_systems(residual, T_WC, ii, jj, rows, shared=(), n_active: Optional[int] = None,
+                  placement=None):
+    """``systems(T) -> (A (E, 7, 7), gj (E, 7))`` on T_WC's device: the one
+    seam of the three residuals. ``residual(T, Ti, ii, jj, *rows, *shared,
+    n_active=) -> (B, g)`` gives each row's system in the edge's relative
+    frame; M = AdjInv(T_i) takes it to A = M^T B M, gj = M^T g (in B's type,
+    then in T's). ``ii``, ``jj`` (E,) are taken as int32; ``rows`` are
+    per-edge tensors, ``shared`` whole ones (the pointmaps, K). A placement
+    splits the rows over its devices (:func:`edge_parts`; see the module
+    docstring), each part on its device; without one there is one part.
+    ``n_active`` (the live prefix as the host knows it; None: all) becomes
+    each part's own live-row count, the kernels' sizing hint."""
+    E, device = ii.shape[0], T_WC.device
+    ii, jj = ii.to(torch.int32), jj.to(torch.int32)
+    parts = [(0, E, device)] if placement is None else edge_parts(E, placement)
+
+    def make(lo, hi, d):
+        live = None if n_active is None else max(0, min(n_active, hi) - lo)
+        part = (tuple(t[lo:hi].to(d).contiguous() for t in (ii, jj, *rows))
+                + tuple(t.to(d).contiguous() for t in shared))
+
+        def fn(T):
+            Ti = T[part[0].long()]
+            B, g = residual(T, Ti, *part, n_active=live)
+            M = _adj_inv_matrix(Ti).to(B.dtype)
+            A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
+            gj = torch.einsum("eba,eb->ea", M, g)
+            return A.to(T.dtype), gj.to(T.dtype)
+
+        return fn
+
+    fns = [(make(lo, hi, d), d) for lo, hi, d in parts]
+    if len(fns) == 1 and parts[0][2] == device:
+        return fns[0][0]
+
+    def systems(T):
+        out = [fn(T.to(d)) for fn, d in fns]
+        return (torch.cat([A.to(device) for A, _ in out]), torch.cat([g.to(device) for _, g in out]))
+
+    return systems
 
 
 # ---------------------------------------------------------------------------
@@ -414,28 +431,6 @@ def _scatter_block(H, g, blocks, gvecs, ii_opt, jj_opt, p_opt):
     return H, g
 
 
-def _edge_systems(placement, E: int, device, make):
-    """``edge_systems(T) -> (A (E, 7, 7), gj (E, 7))`` on ``device`` from
-    ``make(lo, hi, part_device) -> fn(T)``, which builds the systems of rows
-    [lo, hi) on ``part_device`` (copying its inputs there once). Without a
-    placement there is one part, on ``device``."""
-    parts = [(0, E, device)] if placement is None else edge_parts(E, placement)
-    fns = [(make(lo, hi, d), d) for lo, hi, d in parts]
-    if len(fns) == 1 and parts[0][2] == device:
-        return fns[0][0]
-
-    def systems(T):
-        out = [fn(T.to(d)) for fn, d in fns]
-        return (torch.cat([A.to(device) for A, _ in out]), torch.cat([g.to(device) for _, g in out]))
-
-    return systems
-
-
-def _rows(lo: int, hi: int, d, *ts):
-    """Rows [lo, hi) of each tensor, contiguous on ``d``."""
-    return tuple(t[lo:hi].to(d).contiguous() for t in ts)
-
-
 def _newton_step(H, g, eye):
     """dx = -H^-1 g by a damped Cholesky solve in the dtype of ``eye``, the
     identity of H's size (JAX ``global_opt.py:613-633``). f64: damping 1e-8
@@ -446,9 +441,7 @@ def _newton_step(H, g, eye):
     f64 = eye.dtype == torch.float64
     Hs, gs = H.to(eye.dtype), g.to(eye.dtype)[:, None]
     Hs = Hs + (1e-8 if f64 else 1e-6) * torch.clamp(torch.max(torch.diagonal(Hs)), min=1.0) * eye
-    L, info = torch.linalg.cholesky_ex(Hs)
-    ok = (info == 0) & torch.all(torch.isfinite(L))
-    L = torch.where(ok, L, eye)
+    L, ok = safe_cholesky(Hs, eye)
     dx = -torch.cholesky_solve(gs, L)
     if not f64:
         dx = dx + torch.cholesky_solve(-gs - Hs @ dx, L)
@@ -543,16 +536,8 @@ def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: O
     the backend's devices (each part's kernel sized by its own live rows).
     Returns the updated (P, 8) poses."""
     XiT, w0 = _edge_cache(cfg, X, C, edges)
-    jj = edges.jj.to(torch.int32)
-
-    def make(lo, hi, d):
-        live = None if n_active is None else max(0, min(n_active, hi) - lo)
-        fn = _kernel_ray_fn(cfg, live)
-        ii_p, jj_p, XiT_p, w0_p, act_p = _rows(lo, hi, d, edges.ii, jj, XiT, w0, edges.active)
-        xs = (ii_p, jj_p, XiT_p, w0_p, X.to(d).contiguous(), act_p)
-        return lambda T: fn(T, xs)
-
-    systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
+    systems = _edge_systems(partial(_ray_residual, cfg), T_WC, edges.ii, edges.jj,
+                            (XiT, w0, edges.active), (X,), n_active, placement)
     return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
 
 
@@ -566,17 +551,9 @@ def solve_gn_calib(cfg: BAConfig, num_fix: int, img_hw, T_WC, X, C, K, edges: Ed
     :func:`solve_gn_rays`. X (P, HW, 3) is already ray-constrained
     (global_opt.py:298-300); K (3, 3)."""
     XiT, w0 = _edge_cache(cfg, X, C, edges)
-    ii, jj = edges.ii.to(torch.int32), edges.jj.to(torch.int32)
-
-    def make(lo, hi, d):
-        live = None if n_active is None else max(0, min(n_active, hi) - lo)
-        ii_p, jj_p, idx_p, XiT_p, w0_p, act_p = _rows(lo, hi, d, ii, jj, edges.idx, XiT, w0, edges.active)
-        X_p, K_p = X.to(d).contiguous(), K.to(d)
-        return lambda T: _calib_edge_systems(cfg, img_hw, K_p, T, ii_p, jj_p, idx_p, XiT_p, w0_p, X_p, act_p,
-                                             n_active=live)
-
     launched = calib_edge_kernel.calib_edge_systems.launches
-    systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
+    systems = _edge_systems(partial(_calib_residual, cfg, img_hw), T_WC, edges.ii, edges.jj,
+                            (edges.idx, XiT, w0, edges.active), (X, K), n_active, placement)
     T = _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
     spans.count("backend.calib_launches", calib_edge_kernel.calib_edge_systems.launches - launched)
     return T
@@ -590,11 +567,7 @@ def solve_gn_points(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom:
     disabled local mapper local_mapping.py:190-206) with the same outer
     loop, odometry rows, scale priors and edge split as
     :func:`solve_gn_rays`."""
-    XiT, w0, XjT = _edge_inputs(cfg, X, C, edges)
-
-    def make(lo, hi, d):
-        rows = _rows(lo, hi, d, edges.ii, edges.jj, XiT, w0, XjT)
-        return lambda T: _point_edge_systems(cfg, T, *rows)
-
-    systems = _edge_systems(placement, edges.ii.shape[0], T_WC.device, make)
+    XiT, w0 = _edge_cache(cfg, X, C, edges)
+    systems = _edge_systems(partial(_point_residual, cfg), T_WC, edges.ii, edges.jj,
+                            (XiT, w0, _xj_rows(X, edges.jj)), placement=placement)
     return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)

@@ -6,9 +6,9 @@ Behavioral spec: ``mast3r_slam/local_mapping.py`` — a factor dict keyed
 (:151-216) — driven by ``LocalMapOptimizer`` (tracker.py:27-105), which the
 reference ships *disabled* (``enabled = False``, tracker.py:51). The JAX
 package's ``slam/local_mapping.py`` is the reference of this port. Enabled,
-its solve is the backend's :meth:`BackendGraph.solve_GN_rays`, so it runs
-the ray kernel, and a ``placement`` keyword reaches the graph as the
-backend's does.
+its solve is the backend's :meth:`BackendGraph.solve_GN` of a graph built
+without ``K``, so it runs the ray kernel, and a ``placement`` keyword
+reaches the graph as the backend's does.
 """
 
 from __future__ import annotations
@@ -82,4 +82,4 @@ class LocalMapOptimizer:
             return store
         self.graph.add_factors(store, ii, [idx] * len(ii))
         self.graph.enforce_window(idx)
-        return self.graph.solve_GN_rays(store, s_bar)
+        return self.graph.solve_GN(store, s_bar)

@@ -239,6 +239,7 @@ class SLAM:
             self.model, self.ba_cfg, self.match_cfg, img_hw,
             max_edges=int(cfg.tpu.max_edges), max_odom=int(cfg.tpu.max_odom_edges),
             Q_conf=float(lo.Q_conf), min_match_frac=float(lo.min_match_frac), placement=placement,
+            K=self.K if self.tcfg.use_calib else None,
         ) if use_backend else None
 
         self.pgo = make_pose_graph(int(cfg.tpu.max_keyframes), device=self.device)
@@ -693,13 +694,13 @@ class SLAM:
                         self.current_T_WC = T_new[w].cpu().numpy()
 
     def _solve_window(self, store, s_bar=None):
-        """The window solve of a backend task: calibrated pixel/log-depth GN
-        with a calibration, ray alignment otherwise (vio.py:154-157), with
-        the scale targets ``s_bar`` (per logical keyframe, <= 0 off).
-        Returns (uniq, p, T_new) or None."""
-        if self.tcfg.use_calib:
-            return self.backend.solve_window_calib(store, self.K, s_bar)
-        return self.backend.solve_window_rays(store, s_bar)
+        """The window solve of a backend task (vio.py:154-157),
+        :meth:`BackendGraph.solve_window`, with the scale targets ``s_bar``
+        (per logical keyframe, <= 0 off). Returns (uniq, p, T_new) or None.
+        A method of its own so that a subclass can replace a task's solve,
+        as the benchmark's fault rehearsal does
+        (``slambench/tests/test_slambench_rehearsal.py``)."""
+        return self.backend.solve_window(store, s_bar)
 
     def _hp_invalidate(self, k: int):
         """Drop keyframe ``k``'s cached fit (its stored pointmap changed);
@@ -806,9 +807,7 @@ class SLAM:
             last = self.store.last_slot()
             seed = self.store.T_WC[int(retrieved[0]) % self.store.capacity].clone()
             frame_mod.kf_update_T_WCs(self.store, seed[None], [last])
-            win = self._solve_window(self.store)
-            if win is not None:
-                self.backend._write_back(self.store, *win)
+            self.backend.solve_GN(self.store)
             T_WC = self.store.T_WC[last].clone()
             self.current_T_WC = T_WC.cpu().numpy()
             self.active_kf = dataclasses.replace(frame, T_WC=T_WC)

@@ -24,7 +24,7 @@ from ..ops import lie, matching
 from ..ops.fast_nn import fast_reciprocal_nns
 from ..ops.geometry import (act_Sim3, constrain_points_to_ray, get_pixel_coords,
                             point_to_ray_dist, project_calib)
-from ..ops.normal_eqs import ray_dist_drd_cols, reduce_sim3_system
+from ..ops.normal_eqs import ray_dist_drd_cols, reduce_sim3_system, safe_cholesky
 from ..ops.robust import huber
 from ..utils import spans
 from . import frame as frame_mod
@@ -78,15 +78,6 @@ class TrackResult(NamedTuple):
 # dense 7x7 Gauss-Newton (tracker.py:397-412 solve + 414-465 loop)
 # ---------------------------------------------------------------------------
 
-def _safe_cholesky(H: torch.Tensor):
-    """Cholesky that never raises: a non-PD or non-finite H gives ok=False
-    and the identity in place of L (JAX's cholesky returns NaN there)."""
-    L, info = torch.linalg.cholesky_ex(H)
-    ok = (info == 0) & torch.all(torch.isfinite(L))
-    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-    return torch.where(ok, L, eye), ok
-
-
 def _gn_loop_fused(cfg: TrackingCfg, T_init: torch.Tensor, hg_fn):
     """GN driver over a fused step ``hg_fn(T) -> (H (7,7), g (7,), cost)``
     with the convergence test of nonlinear_optimizer.py:5-25. Stops after
@@ -97,7 +88,7 @@ def _gn_loop_fused(cfg: TrackingCfg, T_init: torch.Tensor, hg_fn):
     step = -1
     for step in range(cfg.max_iters):
         H, g, new_cost = hg_fn(T)
-        L, ok = _safe_cholesky(H)
+        L, ok = safe_cholesky(H, torch.eye(7, dtype=H.dtype, device=H.device))
         tau = torch.cholesky_solve(g[:, None], L)[:, 0]
         tau = torch.where(ok, tau, torch.zeros_like(tau)).to(T.dtype)
         new_cost = new_cost.to(old_cost.dtype)

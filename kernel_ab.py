@@ -217,23 +217,23 @@ def ray_errors(trees, args, n_active):
 
 def gn_iterations(dev, model, attention, n_frames=12):
     """GN iterations per frame of the main path with ``attention`` in the
-    model (one ``_safe_cholesky`` per iteration)."""
+    model (one ``safe_cholesky`` per iteration)."""
     from frodo_slam_tpu_torch.models import layers
     from frodo_slam_tpu_torch.slam import tracker
     from frodo_slam_tpu_torch.slam.system import SLAM
 
     per_frame = []
-    real_chol, real_grab = tracker._safe_cholesky, SLAM.grab_rgb
+    real_chol, real_grab = tracker.safe_cholesky, SLAM.grab_rgb
 
-    def counted(H):
+    def counted(H, eye):
         per_frame[-1] += 1
-        return real_chol(H)
+        return real_chol(H, eye)
 
     def grab(self, *a, **k):
         per_frame.append(0)
         return real_grab(self, *a, **k)
 
-    _main_path(dev, model, n_frames, [(tracker, "_safe_cholesky", counted),
+    _main_path(dev, model, n_frames, [(tracker, "safe_cholesky", counted),
                                       (layers, "flash_attention", attention), (SLAM, "grab_rgb", grab)])
     return per_frame
 

@@ -60,12 +60,14 @@ def _match_cfg(**kw):
     return tuple(sorted(mc.items()))
 
 
-def _graphs(tiny, h=H, w=W, max_edges=8, max_odom=4, match_cfg=(), **cfg_kw):
+def _graphs(tiny, h=H, w=W, max_edges=8, max_odom=4, match_cfg=(), K=None, **cfg_kw):
+    """JAX and port graphs of the same configuration; ``K``, the port
+    graph's calibration (None: a ray graph)."""
     params, jcfg, model = tiny
     jg = jbe.BackendGraph(params, jcfg, jgo.BAConfig(**cfg_kw), match_cfg, (h, w),
                           max_edges=max_edges, max_odom=max_odom)
     tg = tbe.BackendGraph(model, tgo.BAConfig(**cfg_kw), match_cfg, (h, w),
-                          max_edges=max_edges, max_odom=max_odom)
+                          max_edges=max_edges, max_odom=max_odom, K=K)
     return jg, tg
 
 
@@ -237,7 +239,7 @@ def test_eviction_protects_loop_closures_and_window_converges(tiny):
 
     T_init = perturb(T_true, 8).astype(np.float32)
     _, ts = _stores(n_kf, hw, X.astype(np.float32), T_init)
-    uniq, p, T_new = tg.solve_window_rays(ts)
+    uniq, p, T_new = tg.solve_window(ts)
     assert tg.last_solve["edge_rows"] == 16 and tg.last_solve["iters"] >= 1
     kf_to_win = {k: n for n, k in enumerate(uniq)}
     from frodo_slam_tpu_torch.ops import lie as tlie
@@ -316,7 +318,7 @@ def test_backend_graph_with_fixed_match_matches_jax(tiny, monkeypatch):
         np.testing.assert_allclose(getattr(tg.edges, f).numpy(), np.asarray(getattr(jg.edges, f)),
                                    atol=1e-6, rtol=1e-6)
     uj, pj, Tj = jg.solve_window_rays(js)
-    ut, pt, Tt = tg.solve_window_rays(ts)
+    ut, pt, Tt = tg.solve_window(ts)
     assert (ut, pt) == (uj, pj)
     np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), atol=1e-5)
     tg._write_back(ts, ut, pt, Tt)

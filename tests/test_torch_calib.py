@@ -3,15 +3,19 @@ same numpy inputs.
 
 - ``opt_pose_calib_sim3``: f32 GN on both sides, poses atol 1e-5 (the same
   f32 operations summed in another order);
-- ``_calib_edge_systems``: f64 on both sides, each edge's A and gj within
-  1e-9 of that edge's largest entry (rounding only);
-- ``solve_gn_calib`` and ``BackendGraph.solve_window_calib``: f32 edge
-  systems and an f64 solve on both sides (the JAX suite runs under x64),
-  poses atol 1e-5; the one-way world of tests/test_global_opt.py:159 is
-  recovered to that test's 5e-3;
+- the calibrated residual through the edge-system seam (``_edge_systems``):
+  f64 on both sides, each edge's A and gj within 1e-9 of that edge's
+  largest entry (rounding only);
+- ``solve_gn_calib`` and ``BackendGraph.solve_window`` (built with and
+  without K, against JAX's ``solve_window_calib`` / ``solve_window_rays``):
+  f32 edge systems and an f64 solve on both sides (the JAX suite runs under
+  x64), poses atol 1e-5; the one-way world of tests/test_global_opt.py:159
+  is recovered to that test's 5e-3;
 - ``SLAM`` with a calibration, backend on: flags exact, poses atol 1e-4 (the
   bar of tests/test_torch_system.py).
 """
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -27,11 +31,12 @@ from frodo_slam_tpu.slam.system import SLAM as JSLAM
 from frodo_slam_tpu_torch.config import make_config as t_make_config
 from frodo_slam_tpu_torch.models import convert as tconvert
 from frodo_slam_tpu_torch.models import mast3r as tmast3r
-from frodo_slam_tpu_torch.ops import calib_edge_kernel
 from frodo_slam_tpu_torch.ops import lie as tlie
+from frodo_slam_tpu_torch.ops import normal_eqs
 from frodo_slam_tpu_torch.slam import global_opt as tgo
 from frodo_slam_tpu_torch.slam import tracker as ttr
 from frodo_slam_tpu_torch.slam.system import SLAM as TSLAM
+from frodo_slam_tpu_torch.utils import spans
 
 from test_torch_backend import _graphs, _stores, tiny  # noqa: F401  (fixture)
 from test_torch_global_opt import j_edges, t_edges
@@ -73,6 +78,13 @@ def one_way_edges(n_kf, hw):
                 Q=np.full((e, hw), 4.0, np.float32), active=np.ones(e, bool))
 
 
+def calib_systems(cfg, img_hw, K, T, ii, jj, idx, XiT, w0, X, active):
+    """The calibrated residual's (A, gj) at poses T through the solves' one
+    edge-system seam (``_edge_systems``)."""
+    return tgo._edge_systems(partial(tgo._calib_residual, cfg, img_hw), T, ii, jj, (idx, XiT, w0, active),
+                             (X, K))(T)
+
+
 def test_calib_edge_systems_match_jax_f64():
     """Random matches, gates and weights (so masked, border and off-pixel
     points all occur), f64 on both sides."""
@@ -95,9 +107,8 @@ def test_calib_edge_systems_match_jax_f64():
                  jnp.asarray(np.swapaxes(XiT, 1, 2)), jnp.asarray(w0), jnp.asarray(X[jj]))
     tens = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     # the port reads frame j's points through jj from the window's X
-    At, gt = tgo._calib_edge_systems(tgo.BAConfig(**cfg), (h, w), tens(K), tens(T), tens(ii),
-                                     tens(jj), tens(idx), tens(XiT), tens(w0), tens(X),
-                                     torch.ones(6, dtype=torch.bool))
+    At, gt = calib_systems(tgo.BAConfig(**cfg), (h, w), tens(K), tens(T), tens(ii), tens(jj), tens(idx),
+                           tens(XiT), tens(w0), tens(X), torch.ones(6, dtype=torch.bool))
     assert At.dtype == torch.float64
     for got, want in ((At.numpy(), np.asarray(Aj)), (gt.numpy(), np.asarray(gj))):
         scale = np.abs(want.reshape(6, -1)).max(1)
@@ -106,7 +117,7 @@ def test_calib_edge_systems_match_jax_f64():
 
 
 def test_calib_edge_chunks_equal_one_step(monkeypatch):
-    """Chunking over edges (CALIB_CHUNK_POINTS) changes no result."""
+    """Chunking over edges (EDGE_CHUNK_POINTS) changes no result."""
     h, w, n_kf = 8, 16, 4
     _, T, X = calib_world(3, h, w, n_kf)
     d = one_way_edges(n_kf, h * w)
@@ -115,9 +126,9 @@ def test_calib_edge_chunks_equal_one_step(monkeypatch):
             torch.from_numpy(np.ascontiguousarray(np.swapaxes(X[d["ii"]], 1, 2))),
             torch.ones(n_kf - 1, h * w, dtype=torch.float64), torch.from_numpy(X),
             torch.from_numpy(d["active"]))
-    A1, g1 = tgo._calib_edge_systems(*args)
-    monkeypatch.setattr(calib_edge_kernel, "CALIB_CHUNK_POINTS", h * w)  # one edge per step
-    A2, g2 = tgo._calib_edge_systems(*args)
+    A1, g1 = calib_systems(*args)
+    monkeypatch.setattr(normal_eqs, "EDGE_CHUNK_POINTS", h * w)  # one edge per step
+    A2, g2 = calib_systems(*args)
     torch.testing.assert_close(A2, A1, rtol=1e-12, atol=0)
     torch.testing.assert_close(g2, g1, rtol=1e-12, atol=0)
 
@@ -149,14 +160,15 @@ def test_solve_gn_calib_matches_jax():
                                    tlie.sim3_rel(Tt[0], Tt[k]).numpy(), atol=5e-3)
 
 
-def test_solve_window_calib_matches_jax(tiny):
-    """BackendGraph.solve_window_calib on a store: the window's points are
-    ray-constrained, the edge inputs gathered from them (no insertion
-    cache), the poses returned unwritten; the same on both sides."""
+def _window_graphs(tiny, K_t=None):
+    """JAX and port graphs over one store of a four-keyframe calibrated
+    world, with four pairs of identity matches and no insertion cache (the
+    edge inputs are gathered from the window's points). The port's graph
+    holds the calibration ``K_t`` when it is given. Returns (jg, tg, js, ts)."""
     h, w, n_kf = 16, 32, 4
     hw = h * w
     _, T_init, X = calib_world(9, h, w, n_kf)
-    jg, tg = _graphs(tiny, h, w, max_edges=8, max_iters=10, delta_norm=1e-12)
+    jg, tg = _graphs(tiny, h, w, max_edges=8, max_iters=10, delta_norm=1e-12, K=K_t)
     jg.edges = jgo.empty_edges(16, hw, with_cache=False)
     tg.edges = tgo.empty_edges(16, hw, with_cache=False)
     ident = np.arange(hw, dtype=np.int32)
@@ -166,14 +178,48 @@ def test_solve_window_calib_matches_jax(tiny):
         jg._insert_pair(i, j, *(jnp.asarray(a) for a in p))
         tg._insert_pair(i, j, *(torch.from_numpy(a) for a in p))
     js, ts = _stores(n_kf, hw, X.astype(np.float32), T_init.astype(np.float32))
+    return jg, tg, js, ts
+
+
+def test_solve_window_calib_matches_jax(tiny):
+    """BackendGraph.solve_window of a graph built with K, on a store: the
+    window's points are ray-constrained, the edge inputs gathered from them
+    (no insertion cache), the poses returned unwritten; the same on both
+    sides (JAX: ``solve_window_calib``). ``solve_GN`` writes the free poses
+    back."""
+    jg, tg, js, ts = _window_graphs(tiny, torch.from_numpy(K).float())
     uj, pj, Tj = jg.solve_window_calib(js, jnp.asarray(K, jnp.float32))
-    ut, pt, Tn = tg.solve_window_calib(ts, torch.from_numpy(K).float())
+    ut, pt, Tn = tg.solve_window(ts)
     assert (ut, pt) == (uj, pj) == ([0, 1, 2, 3], 4)
     assert tg.last_solve["iters"] >= 1 and tg.last_solve["poses"] == 4
     np.testing.assert_allclose(Tn.numpy()[:pt], np.asarray(Tj)[:pj], atol=1e-5)
-    before = ts.T_WC[:n_kf].clone()
-    tg.solve_GN_calib(ts, torch.from_numpy(K).float())
-    assert torch.equal(ts.T_WC[0], before[0]) and not torch.equal(ts.T_WC[1:n_kf], before[1:])
+    before = ts.T_WC[:pt].clone()
+    tg.solve_GN(ts)
+    assert torch.equal(ts.T_WC[0], before[0]) and not torch.equal(ts.T_WC[1:pt], before[1:])
+
+
+@pytest.mark.parametrize("calib", [False, True], ids=["rays", "calib"])
+def test_solve_window_picks_its_residual_from_K(tiny, calib):
+    """The window solve's one choice of residual, made where the graph is
+    built: with K, ``solve_window`` opens ``backend.solve_calib`` and solves
+    as JAX's ``solve_window_calib``; without, it opens ``backend.solve_rays``
+    and solves as JAX's ``solve_window_rays``. The same store; poses atol
+    1e-5; the solve span counts the solve's iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    jg, tg, js, ts = _window_graphs(tiny, torch.from_numpy(K).float() if calib else None)
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        ut, pt, Tn = tg.solve_window(ts)
+    recs = spans.records()
+    spans.clear()
+    solves = [r for r in recs if r["name"].startswith("backend.solve_")]
+    assert [r["name"] for r in solves] == ["backend.solve_calib" if calib else "backend.solve_rays"]
+    assert "backend.window" in [r["name"] for r in recs]
+    assert solves[0]["counters"]["backend.solve_iters"] == tg.last_solve["iters"] >= 1
+    uj, pj, Tj = jg.solve_window_calib(js, jnp.asarray(K, jnp.float32)) if calib else jg.solve_window_rays(js)
+    assert (ut, pt) == (uj, pj) == ([0, 1, 2, 3], 4)
+    np.testing.assert_allclose(Tn.numpy()[:pt], np.asarray(Tj)[:pj], atol=1e-5)
 
 
 def test_opt_pose_calib_matches_jax():
@@ -230,8 +276,9 @@ def test_calibrated_slam_matches_jax(tiny, single_thread):
                single_thread=single_thread, device="cpu", keep_keyframe_images=True)
     assert ts.tcfg.use_calib and js.tcfg.use_calib
     solves = []
-    real = ts.backend.solve_window_calib
-    ts.backend.solve_window_calib = lambda *a, **k: solves.append(1) or real(*a, **k)
+    assert ts.backend.K is not None
+    real = ts.backend.solve_window
+    ts.backend.solve_window = lambda *a, **k: solves.append(1) or real(*a, **k)
     img = np.random.default_rng(2).uniform(0, 1, (H, W, 3)).astype(np.float32)
     for i in range(4):
         okj, Tj, kfj = js.grab_rgb(img, timestamp=float(i))

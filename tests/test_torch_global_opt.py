@@ -15,6 +15,7 @@ atol 1e-5, and one GN step on an ill-conditioned window atol 1e-4.
 """
 
 import contextlib
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +86,14 @@ def _scal(T, ii, jj):
     return torch.cat([sR.reshape(-1, 9), Tij[:, :3]], dim=-1).numpy()
 
 
+def ray_systems(T, ii, jj, XiT, w0, X, active, cfg=tgo.BAConfig()):
+    """The ray residual's (A, gj) at poses T through the solves' one
+    edge-system seam (``_edge_systems``), from numpy or torch inputs."""
+    T, ii, jj, XiT, w0, X, active = (a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
+                                     for a in (T, ii, jj, XiT, w0, X, active))
+    return tgo._edge_systems(partial(tgo._ray_residual, cfg), T, ii, jj, (XiT, w0, active), (X,))(T)
+
+
 def _gated_world():
     """The world of tests/test_ba_reduce_pallas.py:41-82: n_kf 4, hw 640 (not
     a multiple of the Pallas tile: its pad path), random Q, invalid points,
@@ -149,8 +158,8 @@ def test_ray_plain_matches_jax_pallas_interpret():
 
 
 def test_ray_fn_f64_matches_jax_edge_system():
-    """The kernel edge function (plain version on the CPU, then AdjInv) in
-    f64 vs the JAX per-edge D.G form, also f64 under the suite's x64:
+    """The ray residual through the edge-system seam (the kernel's plain
+    version on the CPU, then AdjInv) in f64 vs the JAX per-edge D.G form, also f64 under the suite's x64:
     rtol 1e-9 (atol 1e-9 x the edge's largest entry for entries that cancel
     to ~0 in one form and are literal zeros in the other) on the live
     edges; the inactive edge 0."""
@@ -159,8 +168,7 @@ def test_ray_fn_f64_matches_jax_edge_system():
     d = dict(d, Q=d["Q"].astype(np.float64))
     XiT, w0 = jgo._edges_pre(jgo.BAConfig(), jnp.asarray(X), jnp.asarray(C), j_edges(d))
     XiT, w0 = np.asarray(XiT), np.asarray(w0)
-    xs = tuple(torch.from_numpy(np.array(a)) for a in (d["ii"], d["jj"], XiT, w0, X, d["active"]))
-    A_t, g_t = tgo._kernel_ray_fn(tgo.BAConfig())(torch.from_numpy(T), xs)
+    A_t, g_t = ray_systems(T, d["ii"], d["jj"], XiT, w0, X, d["active"])
     assert A_t.dtype == torch.float64
     for e in range(len(d["ii"])):
         if not d["active"][e]:
@@ -174,8 +182,8 @@ def test_ray_fn_f64_matches_jax_edge_system():
 
 
 def test_solve_gn_rays_reads_xj_through_jj(monkeypatch):
-    """The ray solve makes no (E, 3, N) copy of X: the XjT gather of
-    ``_edge_inputs`` is never reached, and every GN iteration hands the
+    """The ray solve makes no (E, 3, N) copy of X: the point residual's XjT
+    gather ``_xj_rows`` is never reached, and every GN iteration hands the
     kernel the window's own pointmaps with jj, active and the live-row
     hint."""
     kw, T0, X, C, d, o, sb, _ = _case("rays")
@@ -191,7 +199,7 @@ def test_solve_gn_rays_reads_xj_through_jj(monkeypatch):
         calls.append((a, k))
         return real(*a, **k)
 
-    monkeypatch.setattr(tgo, "_edge_inputs", no_gather)
+    monkeypatch.setattr(tgo, "_xj_rows", no_gather)
     monkeypatch.setattr(tgo, "ray_edge_systems", spy)
     X_t = f32(X)
     stats = {}
@@ -447,8 +455,8 @@ def _jax_solve(solver, kw, T0, X, C, d, o, sb, img_hw):
 
 
 def test_solve_gn_calib_reads_poses_and_xj_through_ii_jj(monkeypatch):
-    """The calibrated solve makes no (E, 3, N) copy of X either: the XjT
-    gather of ``_edge_inputs`` is never reached, and every GN iteration
+    """The calibrated solve makes no (E, 3, N) copy of X either: the point
+    residual's XjT gather ``_xj_rows`` is never reached, and every GN iteration
     hands the edge reduction the window's poses and pointmaps with ii, jj,
     idx, active and the live-row hint."""
     kw, T0, X, C, d, o, sb, img_hw = _solver_case("calib", "rays")
@@ -464,7 +472,7 @@ def test_solve_gn_calib_reads_poses_and_xj_through_ii_jj(monkeypatch):
         calls.append((a, k))
         return real(*a, **k)
 
-    monkeypatch.setattr(tgo, "_edge_inputs", no_gather)
+    monkeypatch.setattr(tgo, "_xj_rows", no_gather)
     monkeypatch.setattr(tgo, "calib_edge_systems", spy)
     X_t = f32(X)
     stats = {}
@@ -535,9 +543,8 @@ def test_x64_off_gn_step_matches_jax_on_ill_conditioned_window(monkeypatch):
     d = consecutive_edges(n_kf, hw)
     C = np.full((n_kf, hw, 1), 5.0)
     XiT, w0 = tgo._edges_pre(tgo.BAConfig(), torch.from_numpy(X), torch.from_numpy(C), t_edges(d))
-    xs = tuple(torch.from_numpy(np.asarray(a)) for a in (d["ii"], d["jj"])) + (
-        XiT.contiguous(), w0, torch.from_numpy(X).contiguous(), torch.from_numpy(d["active"]))
-    A, g = tgo._kernel_ray_fn(tgo.BAConfig())(torch.from_numpy(T0).double(), xs)
+    A, g = ray_systems(torch.from_numpy(T0).double(), d["ii"], d["jj"], XiT.contiguous(), w0,
+                       torch.from_numpy(X).contiguous(), d["active"])
     A, g = A.float().numpy(), g.float().numpy()
     o = odom_dict([0], [0], [[0, 0, 0, 0, 0, 0, 1.0]])
     o["active"][:] = False

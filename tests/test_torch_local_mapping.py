@@ -7,6 +7,8 @@ both sides, as the JAX suite runs with x64 on), and the truth within JAX's
 own test tolerance (``tests/test_global_opt.py:133``, 2e-3); the factor
 graph's pairs and rows equal (``tests/test_global_opt.py:219``)."""
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,9 +69,11 @@ def test_point_edge_systems_match_jax():
     d = consecutive_edges(n_kf, hw)
     d["Q"] = np.random.default_rng(1).uniform(0.0, 4.0, d["Q"].shape).astype(np.float32)
     cfg_t, cfg_j = tgo.BAConfig(), jgo.BAConfig()
-    XiT, w0, XjT = tgo._edge_inputs(cfg_t, torch.from_numpy(X), torch.from_numpy(C), t_edges(d))
-    A, g = tgo._point_edge_systems(cfg_t, torch.from_numpy(T), torch.from_numpy(d["ii"]),
-                                   torch.from_numpy(d["jj"]), XiT, w0, XjT)
+    # the point residual's rows, through the solves' one edge-system seam
+    X_t, T_t, edges = torch.from_numpy(X), torch.from_numpy(T), t_edges(d)
+    XiT, w0 = tgo._edge_cache(cfg_t, X_t, torch.from_numpy(C), edges)
+    A, g = tgo._edge_systems(partial(tgo._point_residual, cfg_t), T_t, edges.ii, edges.jj,
+                             (XiT, w0, tgo._xj_rows(X_t, edges.jj)))(T_t)
     jXiT, jw0, jXjT = jgo._edge_inputs(cfg_j, jnp.asarray(X), jnp.asarray(C), j_edges(d))
     Aj, gj = jax.vmap(lambda ii, jj, xi, w, xj: jgo._point_edge_system(
         cfg_j, jnp.asarray(T), ii, jj, xi.T, w, xj.T))(jnp.asarray(d["ii"]), jnp.asarray(d["jj"]), jXiT, jw0, jXjT)

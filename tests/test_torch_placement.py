@@ -302,7 +302,7 @@ def test_backend_add_factors_under_placement_matches_jax_mesh(tiny):
     assert tg._pairs == jg._pairs == [(0, 1), (1, 2), (2, 3)]
     assert (tg.edges.idx[:6].numpy() == np.asarray(jg.edges.idx[:6])).mean() >= 0.97
     uj, pj, Tj = jg.solve_window_rays(js)
-    ut, pt, Tt = tg.solve_window_rays(ts)
+    ut, pt, Tt = tg.solve_window(ts)
     assert (ut, pt) == (uj, pj) and np.isfinite(Tt.numpy()).all()
 
 

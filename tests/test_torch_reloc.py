@@ -223,7 +223,7 @@ def test_reloc_preempts_pending_backend_tasks():
     order = []
     first_solve = threading.Event()
     release_first = threading.Event()
-    real_solve = slam.backend.solve_window_rays
+    real_solve = slam.backend.solve_window
 
     def gated_solve(store, s_bar=None):
         if not first_solve.is_set():
@@ -234,7 +234,7 @@ def test_reloc_preempts_pending_backend_tasks():
         order.append("solve")
         return real_solve(store, s_bar)
 
-    slam.backend.solve_window_rays = gated_solve
+    slam.backend.solve_window = gated_solve
     stats = []
     real_reloc = slam._relocalize
 

@@ -80,8 +80,7 @@ def runs(model):
         _session(model, **kw)
         off = spans.records()
         evals, solve_iters = [], []
-        solve_name = "solve_window_calib" if kw["calib"] else "solve_window_rays"
-        real_solve = getattr(BackendGraph, solve_name)
+        real_solve = BackendGraph.solve_window
 
         def solve(self, *a, real_solve=real_solve, **k):
             res = real_solve(self, *a, **k)
@@ -99,14 +98,14 @@ def runs(model):
             return res
 
         tracker._gn_loop_fused = counting
-        setattr(BackendGraph, solve_name, solve)
+        BackendGraph.solve_window = solve
         try:
             spans.clear()
             with profile(activities=[ProfilerActivity.CPU]):
                 results = _session(model, **kw)
         finally:
             tracker._gn_loop_fused = real
-            setattr(BackendGraph, solve_name, real_solve)
+            BackendGraph.solve_window = real_solve
         out[name] = dict(off=off, on=spans.records(), results=results, evals=evals, solve_iters=solve_iters,
                          main=threading.get_native_id())
     spans.clear()

@@ -45,7 +45,7 @@ def _slam(model, **tpu):
 
 
 def _slow(slam, seconds, started=None, finished=None, solves=None):
-    real = slam.backend.solve_window_rays
+    real = slam.backend.solve_window
 
     def slow_solve(store, s_bar=None):
         if started is not None:
@@ -58,7 +58,7 @@ def _slow(slam, seconds, started=None, finished=None, solves=None):
             finished.set()
         return out
 
-    slam.backend.solve_window_rays = slow_solve
+    slam.backend.solve_window = slow_solve
 
 
 def test_threaded_backend_joins_and_matches_serialized(model):
@@ -188,7 +188,7 @@ def test_failed_backend_task_is_logged_and_worker_survives(model, caplog):
     """A task that raises is logged at ERROR by the worker (what a caller
     checks), and the next task still runs."""
     slam = _slam(model)
-    real = slam.backend.solve_window_rays
+    real = slam.backend.solve_window
     calls = []
 
     def flaky(store, s_bar=None):
@@ -197,7 +197,7 @@ def test_failed_backend_task_is_logged_and_worker_survives(model, caplog):
             raise RuntimeError("injected")
         return real(store, s_bar)
 
-    slam.backend.solve_window_rays = flaky
+    slam.backend.solve_window = flaky
     img = _img(0)
     with caplog.at_level("ERROR"):
         for i in range(3):
