@@ -60,7 +60,9 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      (queued calls), single-call ms, host us, f64 device ms and the f32
      plain twin's ms beside the bound; then a traced run of the cell
      tum384.kf-every: ``backend.calib_launches`` over
-     ``backend.solve_iters`` must be 1.0, and the run correct;
+     ``backend.solve_iters`` must be 1.0, ``backend.step_replays`` over it
+     at least 0.95 with no ``backend.step_captures`` (the warm-up session
+     captured every window shape), and the run correct;
   8. backend_tiny: SLAM(use_backend=True) with odometry at tiny_config on
      the card vs the same on the CPU: flags equal, keyframe poses atol 1e-4;
   9. calib_tiny: the same with a calibration (calibrated tracker and window
@@ -81,8 +83,13 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      once threaded; then one add_factors of two pairs (one a loop closure)
      and a window solve. Per-frame ms, per-task decode+match and solve ms
      (serialized run only: its stages are timed between syncs), GN
-     iterations and ray-kernel launches per solve, edges, peak memory; any
-     backend task that failed (the worker logs it) fails the phase;
+     iterations, GN step replays and captures and ray-kernel launches per
+     solve, edges, peak memory; any backend task that failed (the worker
+     logs it) fails the phase. Then the serialized run's window, its
+     odometry rows dropped (they keep the eager chain) and its poses
+     perturbed, solved twice with the GN step as a CUDA graph and once
+     eagerly: equal iterations, the second graphed solve a replay an
+     iteration and no capture, poses within GRAPH_SOLVE_BAR of the eager;
  12. placement_main: the multi-card placement on aliases of the one card.
      What ``default_placement`` makes of this machine's cards (None at one
      card). ViT-L 288x512 with shared random decoders: one fixed batch of
@@ -108,7 +115,8 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      512x384 with shared random decoders, --no-retrieval --save-as: finite
      trajectory rows, the .ply, one PNG per keyframe, one calibrated
      edge-kernel launch a GN iteration; per-frame and per-solve ms, edge
-     rows per window, peak memory;
+     rows per window, GN step replays and captures per solve, peak memory;
+     the last window graphed against eager as in 11;
  14. realtime_main: the dataset runner with a config that inherits
      configs/realtime.yaml (bf16 heads, ``tpu.x64_eval: false``, the
      pipelined frontend) and forces every tracked frame to a keyframe, on 12
@@ -118,8 +126,10 @@ Phases (one JSON line each; any failure exits nonzero, nothing is caught):
      per-frame host ms, solve wall ms and GN iterations, peak memory;
  15. realtime_backend_main: backend_main's 12 frames threaded, once with
      ``tpu.x64_eval: false`` and once with it true, in one process: solve
-     wall ms, GN iterations and ray launches per solve in each, the largest
-     pose difference between the two runs; then one window of the x64-off
+     wall ms, GN iterations, step replays and captures and ray launches per
+     solve in each, the largest pose difference between the two runs; the
+     x64-off run's window graphed against eager as in 11, in f32 and in
+     f64; then one window of the x64-off
      run (poses perturbed so that it iterates) solved on the card and on the
      CPU (plain versions) in each numerics, held within RT_SOLVE_BAR, with
      the card's solve ms in each;
@@ -232,6 +242,7 @@ from frodo_slam_tpu_torch.models import mast3r  # noqa: E402
 from frodo_slam_tpu_torch.ops import attention_kernel, ba_reduce_kernel, calib_edge_kernel, refine_kernel, resample_kernel, rope_kernel  # noqa: E402
 from frodo_slam_tpu_torch.models import layers as layers_mod  # noqa: E402
 from frodo_slam_tpu_torch.ops import lie  # noqa: E402
+from frodo_slam_tpu_torch.ops.geometry import constrain_points_to_ray  # noqa: E402
 from frodo_slam_tpu_torch.parallel import mesh  # noqa: E402
 from frodo_slam_tpu_torch.slam import global_opt  # noqa: E402
 from frodo_slam_tpu_torch.slam.inference import decode_symmetric_batch, decode_symmetric_split  # noqa: E402
@@ -796,14 +807,16 @@ def _calib_cell_rate(seed=2147520001, seconds=5.0):
     c = bench_run.load_cell("tum384.kf-every")
     r = bench_run.run_cell(c, seed, seconds, True, "cuda", time.time())
     solves = [x for x in spans.records() if x["name"] == "backend.solve_calib"]
-    iters = sum(x["counters"].get("backend.solve_iters", 0) for x in solves)
-    launches = sum(x["counters"].get("backend.calib_launches", 0) for x in solves)
+    total = lambda name: sum(x["counters"].get(name, 0) for x in solves)  # noqa: E731
+    iters, launches = total("backend.solve_iters"), total("backend.calib_launches")
+    replays, captures = total("backend.step_replays"), total("backend.step_captures")
     spans.clear()
     torch.cuda.empty_cache()
     return dict(seed=seed, correct=bool(bench_run.judge(r["checks"], c["limits"])[0]), solves=len(solves),
                 solve_iters=iters, calib_launches=launches, rate=launches / iters if iters else None,
                 iters_per_solve=iters / len(solves) if solves else None,
-                run_launches=calib_edge_kernel.calib_edge_systems.launches - before)
+                run_launches=calib_edge_kernel.calib_edge_systems.launches - before,
+                step_replays=replays, step_captures=captures, step_rate=replays / iters if iters else None)
 
 
 def phase_calib():
@@ -865,6 +878,9 @@ def phase_calib():
     if not (cell["solves"] and cell["rate"] == 1.0 and cell["correct"]):
         raise AssertionError(f"tum384.kf-every: the calibrated solve did not launch the kernel once a "
                              f"GN iteration: {cell}")
+    if not (cell["step_rate"] >= 0.95 and cell["step_captures"] == 0):
+        raise AssertionError(f"tum384.kf-every: the timed session's GN steps are not graph replays, "
+                             f"or it captured: {cell}")
     per_case["cell"] = cell
     return per_case
 
@@ -1098,6 +1114,69 @@ def _instrument(slam, rec, timed):
     be.solve_window = wrap("solve", be.solve_window)
 
 
+# the GN step as a CUDA graph against the eager chain on one window, relative
+# to the largest pose entry (tests/test_torch_solve_graph.py's bars)
+GRAPH_SOLVE_BAR = {True: 1e-10, False: 1e-5}  # by BAConfig.solve_f64
+
+
+def _solve_steps(records) -> dict:
+    """Each solve's GN iterations, step replays and captures (its
+    ``last_solve``) as lists, with their sums."""
+    out = {k: [r.get(k, 0) for r in records] for k in ("iters", "step_replays", "step_captures")}
+    out["totals"] = {k: sum(v) for k, v in out.items()}
+    return out
+
+
+def _graph_vs_eager(be, store, cfg=None, seed=4):
+    """One window of the backend ``be`` over ``store``, its odometry rows
+    dropped (they keep the eager chain) and its poses perturbed so that it
+    iterates, solved on the card twice with the GN step graphed (the second
+    at a cached shape: a replay an iteration, no capture) and once eagerly
+    (``global_opt._graphs_engage`` off). ``cfg``: the solve's BAConfig (the
+    backend's by default). Returns the three solves' iterations, replays and
+    captures and the largest pose difference, over the largest pose entry,
+    of each graphed solve from the eager one."""
+    cfg = cfg or be.cfg
+    uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = be._build_window(store, None)
+    if be.K is not None:
+        X_win = constrain_points_to_ray(be.img_hw, X_win, be.K)
+    noise = torch.from_numpy(np.random.default_rng(seed).normal(size=(T_win.shape[0], 7)) * 0.01)
+    noise[:cfg.pin] = 0.0
+    T0 = lie.sim3_retr(T_win, noise.to(T_win))
+    no_odom = global_opt.empty_odom_edges(0, device=T_win.device)
+
+    def run():
+        st = {}
+        kw = dict(stats=st, n_active=2 * len(be._pairs))
+        if be.K is None:
+            T = global_opt.solve_gn_rays(cfg, cfg.pin, T0, X_win, C_win, edges_win, no_odom, sb, **kw)
+        else:
+            T = global_opt.solve_gn_calib(cfg, cfg.pin, be.img_hw, T0, X_win, C_win, be.K, edges_win,
+                                          no_odom, sb, **kw)
+        torch.cuda.synchronize()
+        return T, st
+
+    g1, st1 = run()
+    g2, st2 = run()
+    real = global_opt._graphs_engage
+    global_opt._graphs_engage = lambda *a: False
+    try:
+        e, st_e = run()
+    finally:
+        global_opt._graphs_engage = real
+    scale = float(e.abs().max())
+    out = dict(window_poses=int(T_win.shape[0]), window_rows=int(edges_win.ii.shape[0]),
+               odom_rows_dropped=int(odom_win.ii.shape[0]), solve_f64=cfg.solve_f64,
+               graphed_first=st1, graphed_again=st2, eager=st_e,
+               pose_rel_diff=[float((g - e).abs().max()) / scale for g in (g1, g2)],
+               bar=GRAPH_SOLVE_BAR[cfg.solve_f64])
+    if not (st1["iters"] == st2["iters"] == st_e["iters"] >= 2 and st2["step_replays"] == st2["iters"]
+            and st2["step_captures"] == 0 and st_e["step_replays"] == 0
+            and max(out["pose_rel_diff"]) <= out["bar"]):
+        raise AssertionError(f"the graphed window solve is off the eager one: {out}")
+    return out
+
+
 def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phase="backend_main",
                  x64_eval=None, keep=False):
     """``extra_pairs`` (0, 2 or 3): after the run, one add_factors of that
@@ -1147,7 +1226,7 @@ def _backend_run(model, frames, single_thread, extra_pairs, placement=None, phas
                edge_rows=[r["edge_rows"] for r in solves], window_poses=[r["poses"] for r in solves],
                pairs=len(slam.backend._pairs), n_odom=slam.backend._n_odom, launches=launches,
                max_memory_allocated=torch.cuda.max_memory_allocated(), allocated_at_start=at_start,
-               joined=joined, edge_parts_per_solve=parts,
+               joined=joined, edge_parts_per_solve=parts, steps=_solve_steps(solves),
                backend_task_failures=failures.records, extra_pairs=extra_pairs,
                ok_new_kf=[sum(f[0] for f in flags), sum(f[1] for f in flags)],
                poses=poses.tolist(), pair_list=[list(q) for q in slam.backend._pairs])
@@ -1176,7 +1255,10 @@ def phase_backend_main(n_frames=12, hw=(288, 512), model_cfg=None):
     model.downstream_head2.load_state_dict(model.downstream_head1.state_dict())
     model.dec_blocks2.load_state_dict(model.dec_blocks.state_dict())
     frames = smooth_random_frames(1, h, w, seed=3) * n_frames
-    ser = _backend_run(model, frames, single_thread=True, extra_pairs=2)
+    ser = _backend_run(model, frames, single_thread=True, extra_pairs=2, keep=True)
+    slam = ser.pop("slam")
+    emit("backend_main_graph", **_graph_vs_eager(slam.backend, slam.store))
+    del slam
     thr = _backend_run(model, frames, single_thread=False, extra_pairs=0)
     torch.cuda.empty_cache()
     return ser, thr
@@ -1388,7 +1470,7 @@ def phase_dataset_main(n_images=24, work=None):
                              + [f"{k}: {json.dumps(v)}" for k, v in FORCE_KEYFRAMES.items()]) + "\n")
     args = types.SimpleNamespace(dataset=str(seq), config=str(cfg), calib=None, save_as="chip_smoke",
                                  no_viz=True, viz=False, weights=None, no_retrieval=True, max_frames=None)
-    rec = dict(frame_ms=[], solve_ms=[], gn_iters=[], edge_rows=[], ray_solves=0)
+    rec = dict(frame_ms=[], solve_ms=[], gn_iters=[], edge_rows=[], ray_solves=0, solves=[], last=None)
     real = dict(grab=SLAM.grab_rgb, solve=BackendGraph.solve_window)
 
     def grab(self, *a, **k):  # ends in the frame's flags fetch: no sync needed
@@ -1408,6 +1490,9 @@ def phase_dataset_main(n_images=24, work=None):
         rec["solve_ms"].append((time.perf_counter() - t) * 1e3)
         rec["gn_iters"].append(self.last_solve["iters"] if out is not None else 0)
         rec["edge_rows"].append(self.last_solve["edge_rows"] if out is not None else 0)
+        if out is not None:
+            rec["solves"].append(dict(self.last_solve))
+            rec["last"] = (self, a[0])
         return out
 
     SLAM.grab_rgb, BackendGraph.solve_window = grab, solve
@@ -1440,10 +1525,12 @@ def phase_dataset_main(n_images=24, work=None):
              median_frame_ms_after_first=statistics.median(frame_ms[1:]),
              solve_ms=[round(x, 3) for x in solve_ms], gn_iters=rec["gn_iters"], edge_rows=rec["edge_rows"],
              median_solve_ms=statistics.median(solve_ms) if solve_ms else None,
-             ray_solves=rec["ray_solves"],
+             ray_solves=rec["ray_solves"], steps=_solve_steps(rec["solves"]),
              max_memory_allocated=torch.cuda.max_memory_allocated(), allocated_at_start=at_start,
              launches=launches, ply_vertices=n_vertex, keyframe_pngs=len(pngs))
     emit("dataset_main", **r)
+    r["graph"] = _graph_vs_eager(*rec["last"])
+    emit("dataset_main_graph", **r["graph"])
     assert rows.shape == (n_images // 2, 8) and np.isfinite(rows).all(), rows.shape
     assert len(pngs) == rows.shape[0] and n_vertex > 0
     assert len(solve_ms) == rows.shape[0] - 1 and r["ray_solves"] == 0
@@ -1573,6 +1660,8 @@ def phase_realtime_backend_main(n_frames=12, hw=(288, 512)):
     slam = runs[False].pop("slam")
     runs[True].pop("slam").terminate()
     be = slam.backend
+    graph = {("f64" if f64 else "f32"): _graph_vs_eager(be, slam.store, be.cfg._replace(solve_f64=f64))
+             for f64 in (False, True)}
     uniq, p, T_win, X_win, C_win, edges_win, odom_win, sb = be._build_window(slam.store, None)
     noise = torch.from_numpy(np.random.default_rng(4).normal(size=(T_win.shape[0], 7)) * 0.01).float()
     noise[:be.cfg.pin] = 0.0
@@ -1607,9 +1696,9 @@ def phase_realtime_backend_main(n_frames=12, hw=(288, 512)):
         v.pop("poses")
     out = dict(modes={("x64_on" if k else "x64_off"): dict(
                    solve_wall_ms=r["solve_wall_ms"], gn_iters=r["gn_iters"],
-                   ray_launches_per_solve=r["ray_launches_per_solve"],
+                   ray_launches_per_solve=r["ray_launches_per_solve"], steps=r["steps"],
                    median_frame_ms_after_first=r["median_frame_ms_after_first"], launches=r["launches"])
-               for k, r in runs.items()},
+               for k, r in runs.items()}, graph_vs_eager=graph,
                pose_max_abs_diff_between_modes=between, window_poses=int(T_win.shape[0]),
                window_rows=int(edges_win.ii.shape[0]), live_rows=n_active,
                window_solve={("f64" if k else "f32"): v for k, v in solve.items()},

@@ -19,8 +19,9 @@ reduced over the points, by a Hopper kernel (its plain version on a CPU
 tensor): the ray edges by :mod:`..ops.ba_reduce_kernel`, the calibrated
 edges, which JAX reduces with XLA, by :mod:`..ops.calib_edge_kernel`. Each
 residual (:func:`_ray_residual`, :func:`_calib_residual`,
-:func:`_point_residual`) hands back B and g, and one seam,
-:func:`_edge_systems`, applies M to them. The dense (7P x 7P) system is
+:func:`_point_residual`) hands back B and g through one seam,
+:func:`_edge_systems`, and the GN step (:func:`_gn_step`) applies M to them
+(:func:`_adj_wrap`). The dense (7P x 7P) system is
 assembled on the device and Cholesky-solved there: in f64 by default (the
 reference's double Eigen solve, and the JAX package under x64), or, with
 ``BAConfig.solve_f64`` off (``tpu.x64_eval: false``, the real-time
@@ -30,9 +31,14 @@ refinement, as the JAX package solves with x64 off.
 The GN loop stops early on the host: each iteration fetches one bool
 (``|dx| >= delta_norm``), so a solve makes exactly one edge-kernel launch per
 iteration it runs (one per edge part under a placement), and its result is
-the JAX ``lax.while_loop``'s. While a profiler records, a solve adds its
-iterations to the ``backend.solve_iters`` counter of the span open around it,
-and the calibrated solve its kernel launches to ``backend.calib_launches``.
+the JAX ``lax.while_loop``'s. On a card the step after the residual (the
+wrap, the assembly, the damped Cholesky, the retraction: some 250 small
+launches) is one CUDA graph replay an iteration, where the window allows it
+(:func:`_graphs_engage`); the eager step is the CPU's path and the graph's
+twin. While a profiler records, a solve adds its iterations, replays and
+captures to the ``backend.solve_iters``, ``backend.step_replays`` and
+``backend.step_captures`` counters of the span open around it, and the
+calibrated solve its kernel launches to ``backend.calib_launches``.
 
 Under a :class:`~..parallel.mesh.Placement` the edge rows are split over the
 backend's devices (:func:`~..parallel.mesh.edge_parts`, the JAX package's
@@ -44,6 +50,8 @@ in row order, where the assembly and the Cholesky run once.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from functools import partial
 from typing import NamedTuple, Optional
 
@@ -170,20 +178,20 @@ def _xj_rows(X, jj):
     return X.transpose(1, 2)[jj.long()]
 
 
-def _ray_residual(cfg: BAConfig, T, Ti, ii, jj, XiT, w0, active, X, n_active=None):
+def _ray_residual(cfg: BAConfig, T, ii, jj, XiT, w0, active, X, n_active=None):
     """Ray edges (gn_kernels.cu:576-907) -> (B (E, 7, 7), g (E, 7)) through
     :func:`ray_edge_systems` (the kernel on the card, its plain version on
     the CPU): ONE launch reduces every live edge, Xj read from the window's
     pointmaps X (P, HW, 3) through ``jj``; each edge's relative [sR | t] is
     plain tensor code (it lies outside the TPU kernel too)."""
     dt = XiT.dtype
-    scal = lie.sim3_rel_sRt(Ti, T[jj.long()]).to(dt)
+    scal = lie.sim3_rel_sRt(T[ii.long()], T[jj.long()]).to(dt)
     return ray_edge_systems(scal, XiT, w0.to(dt), X.to(dt), jj, active,
                             sigma_ray=float(cfg.sigma_ray), sigma_dist=float(cfg.sigma_dist),
                             n_active=n_active)
 
 
-def _calib_residual(cfg: BAConfig, img_hw, T, Ti, ii, jj, idx, XiT, w0, active, X, K, n_active=None):
+def _calib_residual(cfg: BAConfig, img_hw, T, ii, jj, idx, XiT, w0, active, X, K, n_active=None):
     """Calibrated pixel + log-depth edges (calib_proj_kernel,
     gn_kernels.cu:2295-2608) -> (B (E, 7, 7), g (E, 7)) through
     :func:`calib_edge_systems` (the kernel on the card, its plain version on
@@ -202,7 +210,7 @@ def _calib_residual(cfg: BAConfig, img_hw, T, Ti, ii, jj, idx, XiT, w0, active, 
                               n_active=n_active)
 
 
-def _point_residual(cfg: BAConfig, T, Ti, ii, jj, XiT, w0, XjT, n_active=None):
+def _point_residual(cfg: BAConfig, T, ii, jj, XiT, w0, XjT, n_active=None):
     """3-D point-alignment edges (point_align_kernel, gn_kernels.cu:1936-2204)
     -> (B (E, 7, 7), g (E, 7)): residual ``Sim3(T_ij) Xj - Xi`` with D = I,
     Huber-weighted with sqrt-weight ``w0 / sigma_point``. Plain tensor code
@@ -210,7 +218,7 @@ def _point_residual(cfg: BAConfig, T, Ti, ii, jj, XiT, w0, XjT, n_active=None):
     package reduces it with XLA too)."""
     E, _, N = XiT.shape
     dt = XiT.dtype
-    Tij = lie.sim3_rel(Ti, T[jj.long()]).to(dt)
+    Tij = lie.sim3_rel(T[ii.long()], T[jj.long()]).to(dt)
     B = torch.empty((E, 7, 7), dtype=dt, device=XiT.device)
     g = torch.empty((E, 7), dtype=dt, device=XiT.device)
     eye = torch.eye(3, dtype=dt, device=XiT.device)
@@ -223,46 +231,58 @@ def _point_residual(cfg: BAConfig, T, Ti, ii, jj, XiT, w0, XjT, n_active=None):
     return B, g
 
 
+def _parts(E: int, device, placement):
+    """The edge rows' (lo, hi, device) parts: :func:`edge_parts` under a
+    placement, else one part on ``device``."""
+    return [(0, E, device)] if placement is None else edge_parts(E, placement)
+
+
+def _split(E: int, device, placement) -> bool:
+    """Whether the rows leave ``device``: more than one part, or one
+    elsewhere."""
+    parts = _parts(E, device, placement)
+    return len(parts) > 1 or parts[0][2] != device
+
+
 def _edge_systems(residual, T_WC, ii, jj, rows, shared=(), n_active: Optional[int] = None,
                   placement=None):
-    """``systems(T) -> (A (E, 7, 7), gj (E, 7))`` on T_WC's device: the one
-    seam of the three residuals. ``residual(T, Ti, ii, jj, *rows, *shared,
-    n_active=) -> (B, g)`` gives each row's system in the edge's relative
-    frame; M = AdjInv(T_i) takes it to A = M^T B M, gj = M^T g (in B's type,
-    then in T's). ``ii``, ``jj`` (E,) are taken as int32; ``rows`` are
-    per-edge tensors, ``shared`` whole ones (the pointmaps, K). A placement
-    splits the rows over its devices (:func:`edge_parts`; see the module
+    """``systems(T) -> (B (E, 7, 7), g (E, 7))`` on T_WC's device, each
+    row's system in its edge's relative frame: the one seam of the three
+    residuals, whose GN step (:func:`_gn_step`) then applies
+    :func:`_adj_wrap`. ``residual(T, ii, jj, *rows, *shared, n_active=) ->
+    (B, g)``. ``ii``, ``jj`` (E,) are taken as int32; ``rows`` are per-edge
+    tensors, ``shared`` whole ones (the pointmaps, K). A placement splits
+    the rows over its devices (:func:`edge_parts`; see the module
     docstring), each part on its device; without one there is one part.
     ``n_active`` (the live prefix as the host knows it; None: all) becomes
     each part's own live-row count, the kernels' sizing hint."""
     E, device = ii.shape[0], T_WC.device
     ii, jj = ii.to(torch.int32), jj.to(torch.int32)
-    parts = [(0, E, device)] if placement is None else edge_parts(E, placement)
 
     def make(lo, hi, d):
         live = None if n_active is None else max(0, min(n_active, hi) - lo)
         part = (tuple(t[lo:hi].to(d).contiguous() for t in (ii, jj, *rows))
                 + tuple(t.to(d).contiguous() for t in shared))
+        return lambda T: residual(T, *part, n_active=live)
 
-        def fn(T):
-            Ti = T[part[0].long()]
-            B, g = residual(T, Ti, *part, n_active=live)
-            M = _adj_inv_matrix(Ti).to(B.dtype)
-            A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
-            gj = torch.einsum("eba,eb->ea", M, g)
-            return A.to(T.dtype), gj.to(T.dtype)
-
-        return fn
-
-    fns = [(make(lo, hi, d), d) for lo, hi, d in parts]
-    if len(fns) == 1 and parts[0][2] == device:
+    fns = [(make(lo, hi, d), d) for lo, hi, d in _parts(E, device, placement)]
+    if not _split(E, device, placement):
         return fns[0][0]
 
     def systems(T):
         out = [fn(T.to(d)) for fn, d in fns]
-        return (torch.cat([A.to(device) for A, _ in out]), torch.cat([g.to(device) for _, g in out]))
+        return (torch.cat([B.to(device) for B, _ in out]), torch.cat([g.to(device) for _, g in out]))
 
     return systems
+
+
+def _adj_wrap(T, ii, B, g):
+    """(A (E, 7, 7), gj (E, 7)) in T's type: M = AdjInv(T_i) takes each
+    row's relative-frame (B, g) to A = M^T B M, gj = M^T g (in B's type)."""
+    M = _adj_inv_matrix(T[ii.long()]).to(B.dtype)
+    A = torch.einsum("eba,ebc,ecd->ead", M, B, M)
+    gj = torch.einsum("eba,eb->ea", M, g)
+    return A.to(T.dtype), gj.to(T.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -448,75 +468,225 @@ def _newton_step(H, g, eye):
     return torch.where(ok, dx[:, 0], 0.0)
 
 
-def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, s_bar,
-              edge_systems, stats: Optional[dict] = None):
-    """Outer GN loop (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934):
-    per iteration, every edge system, the dense normal equations with the
-    odometry and scale-prior blocks, a damped Cholesky solve on the device
-    (:func:`_newton_step`, f64 or f32 by ``cfg.solve_f64``), the left
-    retraction of the free poses. Stops after the iteration whose step norm
-    fell below ``delta_norm`` (one host fetch per iteration). ``stats``, if
-    given, receives the iteration count."""
-    p = T_WC.shape[0]
-    p_opt = p - num_fix
-    dev = T_WC.device
+class _Lin(NamedTuple):
+    """A window's index and mask tensors, made once a solve (the step reads
+    them every iteration): the edge rows' ``ii`` (E,) int32; the dense
+    system's block rows / columns ``Hi``, ``Hj`` (4E + 4O,) and gradient
+    rows ``gi`` (2E + 2O,) among the free poses (pinned ones negative); the
+    live rows ``active`` (E,); the scale targets ``s_bar`` (P,); the free
+    poses ``free`` (P,); the scale entries ``diag_idx`` (P - num_fix,) of
+    the diagonal."""
+
+    ii: torch.Tensor
+    Hi: torch.Tensor
+    Hj: torch.Tensor
+    gi: torch.Tensor
+    active: torch.Tensor
+    s_bar: torch.Tensor
+    free: torch.Tensor
+    diag_idx: torch.Tensor
+
+
+def _lin(num_fix: int, p: int, edges: Edges, odom: OdomEdges, s_bar) -> _Lin:
+    dev = edges.ii.device
     ii_opt, jj_opt = edges.ii - num_fix, edges.jj - num_fix
     oi_opt, oj_opt = odom.ii - num_fix, odom.jj - num_fix
-    Hi = torch.cat([ii_opt, ii_opt, jj_opt, jj_opt, oi_opt, oi_opt, oj_opt, oj_opt])
-    Hj = torch.cat([ii_opt, jj_opt, ii_opt, jj_opt, oi_opt, oj_opt, oi_opt, oj_opt])
-    gi = torch.cat([ii_opt, jj_opt, oi_opt, oj_opt])
-    amask = edges.active
+    return _Lin(
+        ii=edges.ii.to(torch.int32),
+        Hi=torch.cat([ii_opt, ii_opt, jj_opt, jj_opt, oi_opt, oi_opt, oj_opt, oj_opt]),
+        Hj=torch.cat([ii_opt, jj_opt, ii_opt, jj_opt, oi_opt, oj_opt, oi_opt, oj_opt]),
+        gi=torch.cat([ii_opt, jj_opt, oi_opt, oj_opt]),
+        active=edges.active, s_bar=s_bar,
+        free=torch.arange(p, device=dev) >= num_fix,
+        diag_idx=torch.arange(p - num_fix, device=dev) * 7 + 6)
+
+
+def _gn_step(num_fix: int, info_sp: float, lin: _Lin, eye, T, B, g, odom_systems=None):
+    """One GN step after the residual: the AdjInv wrap of the rows' (B, g)
+    (:func:`_adj_wrap`), the dead rows masked, the dense (7P', 7P') normal
+    equations with the odometry blocks ``odom_systems`` ((O, 14, 14), (O,
+    14); None: no rows) and the scale priors, the damped Cholesky solve in
+    ``eye``'s type (:func:`_newton_step`) and the left retraction of the
+    free poses. Returns (T_out, |dx|). Launches only, no host sync: a CUDA
+    graph can hold it (:class:`_StepGraph`)."""
+    p_opt = T.shape[0] - num_fix
+    A_all, gj_all = _adj_wrap(T, lin.ii, B, g)
+    m = lin.active.to(A_all.dtype)
+    A_all = A_all * m[:, None, None]
+    gj_all = gj_all * m[:, None]
+    if odom_systems is None:  # no odometry rows: nothing to linearize
+        Ho = A_all.new_zeros((0, 14, 14))
+        go = A_all.new_zeros((0, 14))
+    else:
+        Ho, go = (t.to(A_all.dtype) for t in odom_systems)
+
+    H = torch.zeros((7 * p_opt, 7 * p_opt), dtype=A_all.dtype, device=T.device)
+    gv = torch.zeros((7 * p_opt,), dtype=A_all.dtype, device=T.device)
+    # Ji = -Jj: H_ii = H_jj = A, H_ij = H_ji = -A; g_i = -gj, g_j = gj
+    blocks = torch.cat([A_all, -A_all, -A_all, A_all, Ho[:, :7, :7], Ho[:, :7, 7:],
+                        Ho[:, 7:, :7], Ho[:, 7:, 7:]])
+    _scatter_block(H, None, blocks, None, lin.Hi, lin.Hj, p_opt)
+    _scatter_block(H, gv, None, torch.cat([-gj_all, gj_all, go[:, :7], go[:, 7:]]),
+                   lin.gi, lin.gi, p_opt)
+
+    # scale priors: r = log(s / s_bar), unit Jacobian on the scale DoF
+    s = T[:, 7]
+    sp_valid = (lin.s_bar > 1e-6) & (s > 1e-6) & lin.free
+    r_s = torch.where(sp_valid, torch.log(torch.clamp(s, min=1e-12)
+                                          / torch.clamp(lin.s_bar, min=1e-12)), 0.0)
+    sp_w = torch.where(sp_valid[num_fix:], info_sp, 0.0).to(H.dtype)
+    H[lin.diag_idx, lin.diag_idx] += sp_w
+    gv[lin.diag_idx] += sp_w * r_s[num_fix:].to(H.dtype)
+
+    dx = _newton_step(H, gv, eye).reshape(p_opt, 7).to(T.dtype)
+
+    T_out = T.clone()
+    T_out[num_fix:] = lie.sim3_retr(T[num_fix:], dx)
+    return T_out, torch.linalg.norm(dx.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# the GN step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+MAX_STEP_GRAPHS = 16  # window shapes kept; a cell meets a handful (pose and pair buckets)
+
+_step_graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+_step_graphs_lock = threading.Lock()  # the cache
+_capture_lock = threading.Lock()  # one capture at a time in the process
+_capture_streams: dict = {}
+
+
+def _graphs_engage(device, n_odom: int, split: bool) -> bool:
+    """The GN step runs as a CUDA graph on a card, for a window whose edge
+    rows stay on the solve device and that has no odometry rows (their
+    systems copy a host-built vector, which a capture cannot hold)."""
+    return device.type == "cuda" and not split and n_odom == 0
+
+
+class _StepGraph:
+    """One window shape's captured :func:`_gn_step`: static inputs, the
+    graph, its outputs. Held by one solve at a time (``lock``)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.graph = None
+
+    def capture(self, step, lin: _Lin, eye, T, B, g):
+        """Capture ``step`` on a side stream of T's device, into a pool of
+        the graph's own, over static copies of the inputs' shapes. Without
+        ``torch.cuda.graph``'s device sync, collection and cache flush: a
+        frontend thread may be launching meanwhile (its calls are not
+        captured: ``thread_local``)."""
+        dev = T.device
+        self.lin = _Lin(*(t.clone() for t in lin))
+        self.eye, self.T, self.B, self.g = eye.clone(), T.clone(), B.clone(), g.clone()
+        with _capture_lock:
+            stream = _capture_streams.get(dev)
+            if stream is None:
+                stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.out = step(self.lin, self.eye, self.T, self.B, self.g)
+                finally:
+                    graph.capture_end()
+        self.graph = graph
+
+    def replay(self, lin: Optional[_Lin], T, B, g):
+        """The step on (T, B, g) and, when given, a new window's ``lin``:
+        copies into the static inputs, one replay. Returns the static
+        (T_out, |dx|), valid until the next replay."""
+        if lin is not None:
+            for dst, src in zip(self.lin, lin):
+                dst.copy_(src)
+        self.T.copy_(T)
+        self.B.copy_(B)
+        self.g.copy_(g)
+        self.graph.replay()
+        return self.out
+
+
+def _step_graph(key) -> Optional[_StepGraph]:
+    """The cache's graph of ``key``, taken (its lock held), or None when
+    another solve holds it. A new key gets an empty entry; past
+    :data:`MAX_STEP_GRAPHS` the least recently used free entry goes."""
+    with _step_graphs_lock:
+        entry = _step_graphs.get(key)
+        if entry is None:
+            entry = _step_graphs[key] = _StepGraph()
+            excess = len(_step_graphs) - MAX_STEP_GRAPHS
+            for old in [k for k in _step_graphs if k != key]:
+                if excess > 0 and _step_graphs[old].lock.acquire(blocking=False):
+                    del _step_graphs[old]
+                    excess -= 1
+        _step_graphs.move_to_end(key)
+        return entry if entry.lock.acquire(blocking=False) else None
+
+
+def _solve_gn(cfg: BAConfig, num_fix: int, T_WC, edges: Edges, odom: OdomEdges, s_bar,
+              edge_systems, stats: Optional[dict] = None, split: bool = False):
+    """Outer GN loop (gauss_newton_rays_odom_cuda, gn_kernels.cu:1792-1934):
+    per iteration, every edge system (``edge_systems``, see
+    :func:`_edge_systems`), then :func:`_gn_step`: the dense normal
+    equations with the odometry and scale-prior blocks, a damped Cholesky
+    solve on the device (:func:`_newton_step`, f64 or f32 by
+    ``cfg.solve_f64``), the left retraction of the free poses. Stops after
+    the iteration whose step norm fell below ``delta_norm`` (one host fetch
+    per iteration).
+
+    Where :func:`_graphs_engage` (a card, rows not ``split`` off the solve
+    device, no odometry rows), the step is one CUDA graph replay, the
+    residual staying eager before it: at a window shape (device, poses,
+    rows, ``num_fix``, the systems', poses' and solve's types) met first,
+    iteration 1 runs eagerly (it also warms the solver's library handles)
+    and the step is captured before iteration 2; the graphs are kept for
+    the process. ``stats``, if given, receives the iteration count, the
+    replays and the captures; while a profiler records they are added to
+    the counters ``backend.solve_iters``, ``backend.step_replays`` and
+    ``backend.step_captures`` of the span open around the solve."""
+    p = T_WC.shape[0]
+    n_odom = odom.ii.shape[0]
+    lin = _lin(num_fix, p, edges, odom, s_bar)
+    eye = torch.eye(7 * (p - num_fix), dtype=torch.float64 if cfg.solve_f64 else torch.float32,
+                    device=T_WC.device)
     info_sp = 1.0 / cfg.sigma_scale_prior ** 2
-    diag_idx = torch.arange(p_opt, device=dev) * 7 + 6
-    free = torch.arange(p, device=dev) >= num_fix
-    eye = torch.eye(7 * p_opt, dtype=torch.float64 if cfg.solve_f64 else torch.float32, device=dev)
-
-    def iteration(T_in):
-        A_all, gj_all = edge_systems(T_in)
-        m = amask.to(A_all.dtype)
-        A_all = A_all * m[:, None, None]
-        gj_all = gj_all * m[:, None]
-        if odom.ii.shape[0]:
-            Ho, go = _odom_systems(cfg, T_in, odom)
-            Ho, go = Ho.to(A_all.dtype), go.to(A_all.dtype)
-        else:  # no odometry rows: nothing to linearize
-            Ho = A_all.new_zeros((0, 14, 14))
-            go = A_all.new_zeros((0, 14))
-
-        H = torch.zeros((7 * p_opt, 7 * p_opt), dtype=A_all.dtype, device=dev)
-        g = torch.zeros((7 * p_opt,), dtype=A_all.dtype, device=dev)
-        # Ji = -Jj: H_ii = H_jj = A, H_ij = H_ji = -A; g_i = -gj, g_j = gj
-        blocks = torch.cat([A_all, -A_all, -A_all, A_all, Ho[:, :7, :7], Ho[:, :7, 7:],
-                            Ho[:, 7:, :7], Ho[:, 7:, 7:]])
-        _scatter_block(H, None, blocks, None, Hi, Hj, p_opt)
-        _scatter_block(H, g, None, torch.cat([-gj_all, gj_all, go[:, :7], go[:, 7:]]),
-                       gi, gi, p_opt)
-
-        # scale priors: r = log(s / s_bar), unit Jacobian on the scale DoF
-        s = T_in[:, 7]
-        sp_valid = (s_bar > 1e-6) & (s > 1e-6) & free
-        r_s = torch.where(sp_valid, torch.log(torch.clamp(s, min=1e-12)
-                                              / torch.clamp(s_bar, min=1e-12)), 0.0)
-        sp_w = torch.where(sp_valid[num_fix:], info_sp, 0.0).to(H.dtype)
-        H[diag_idx, diag_idx] += sp_w
-        g[diag_idx] += sp_w * r_s[num_fix:].to(H.dtype)
-
-        dx = _newton_step(H, g, eye).reshape(p_opt, 7).to(T_in.dtype)
-
-        T_out = T_in.clone()
-        T_out[num_fix:] = lie.sim3_retr(T_in[num_fix:], dx)
-        return T_out, torch.linalg.norm(dx.reshape(-1))
-
+    step = partial(_gn_step, num_fix, info_sp)
+    graphed = _graphs_engage(T_WC.device, n_odom, split)
+    entry = None
+    replays = captures = 0
     T = T_WC
     it = 0
-    while it < cfg.max_iters:
-        T, dn = iteration(T)
-        it += 1
-        if not bool(dn >= cfg.delta_norm):  # the loop's one host fetch; NaN stops too
-            break
+    try:
+        while it < cfg.max_iters:
+            B, g = edge_systems(T)
+            if graphed and entry is None:
+                key = (T.device, p, B.shape[0], num_fix, B.dtype, T.dtype, eye.dtype, info_sp)
+                entry = _step_graph(key)
+                graphed = entry is not None
+            if graphed and entry.graph is None and it > 0:
+                entry.capture(step, lin, eye, T, B, g)
+                captures += 1
+            if graphed and entry.graph is not None:
+                T, dn = entry.replay(lin if replays == 0 else None, T, B, g)
+                replays += 1
+            else:
+                odom_systems = _odom_systems(cfg, T, odom) if n_odom else None
+                T, dn = step(lin, eye, T, B, g, odom_systems)
+            it += 1
+            if not bool(dn >= cfg.delta_norm):  # the loop's one host fetch; NaN stops too
+                break
+        if replays:
+            T = T.clone()  # the graph's output buffer is the next solve's
+    finally:
+        if entry is not None:
+            entry.lock.release()
     if stats is not None:
-        stats["iters"] = it
+        stats.update(iters=it, step_replays=replays, step_captures=captures)
     spans.count("backend.solve_iters", it)
+    spans.count("backend.step_replays", replays)
+    spans.count("backend.step_captures", captures)
     return T
 
 
@@ -538,7 +708,8 @@ def solve_gn_rays(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom: O
     XiT, w0 = _edge_cache(cfg, X, C, edges)
     systems = _edge_systems(partial(_ray_residual, cfg), T_WC, edges.ii, edges.jj,
                             (XiT, w0, edges.active), (X,), n_active, placement)
-    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats,
+                     split=_split(edges.ii.shape[0], T_WC.device, placement))
 
 
 @torch.no_grad()
@@ -554,7 +725,8 @@ def solve_gn_calib(cfg: BAConfig, num_fix: int, img_hw, T_WC, X, C, K, edges: Ed
     launched = calib_edge_kernel.calib_edge_systems.launches
     systems = _edge_systems(partial(_calib_residual, cfg, img_hw), T_WC, edges.ii, edges.jj,
                             (edges.idx, XiT, w0, edges.active), (X, K), n_active, placement)
-    T = _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
+    T = _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats,
+                  split=_split(edges.ii.shape[0], T_WC.device, placement))
     spans.count("backend.calib_launches", calib_edge_kernel.calib_edge_systems.launches - launched)
     return T
 
@@ -570,4 +742,5 @@ def solve_gn_points(cfg: BAConfig, num_fix: int, T_WC, X, C, edges: Edges, odom:
     XiT, w0 = _edge_cache(cfg, X, C, edges)
     systems = _edge_systems(partial(_point_residual, cfg), T_WC, edges.ii, edges.jj,
                             (XiT, w0, _xj_rows(X, edges.jj)), placement=placement)
-    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats)
+    return _solve_gn(cfg, num_fix, T_WC, edges, odom, s_bar, systems, stats=stats,
+                     split=_split(edges.ii.shape[0], T_WC.device, placement))

@@ -35,10 +35,13 @@ waits for ``SLAM._backend_lock``), ``backend.lock_wait_ns`` (a backend
 task's), ``model.rope_launches`` (the RoPE kernel's launches in one
 ``encode_image`` or ``decode``, by the calling thread: one an attention on
 the card, 0 on the CPU), ``backend.solve_iters`` (a window solve's
-Gauss-Newton iterations, each ending in one host fetch) and
+Gauss-Newton iterations, each ending in one host fetch),
 ``backend.calib_launches`` (the calibrated edge kernel's launches in one
 calibrated solve: one an iteration and edge part on the card, 0 on the
-CPU).
+CPU), ``backend.step_replays`` and ``backend.step_captures`` (a window
+solve's CUDA graph replays and captures of its GN step: a replay an
+iteration at a window shape met before, 0 on the CPU and for windows with
+odometry rows or split edge rows).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@ same numpy inputs.
 
 - ``opt_pose_calib_sim3``: f32 GN on both sides, poses atol 1e-5 (the same
   f32 operations summed in another order);
-- the calibrated residual through the edge-system seam (``_edge_systems``):
+- the calibrated residual through the edge-system seam (``_edge_systems``)
+  and the AdjInv wrap (``_adj_wrap``):
   f64 on both sides, each edge's A and gj within 1e-9 of that edge's
   largest entry (rounding only);
 - ``solve_gn_calib`` and ``BackendGraph.solve_window`` (built with and
@@ -80,9 +81,11 @@ def one_way_edges(n_kf, hw):
 
 def calib_systems(cfg, img_hw, K, T, ii, jj, idx, XiT, w0, X, active):
     """The calibrated residual's (A, gj) at poses T through the solves' one
-    edge-system seam (``_edge_systems``)."""
-    return tgo._edge_systems(partial(tgo._calib_residual, cfg, img_hw), T, ii, jj, (idx, XiT, w0, active),
+    edge-system seam (``_edge_systems``) and the step's AdjInv wrap
+    (``_adj_wrap``)."""
+    B, g = tgo._edge_systems(partial(tgo._calib_residual, cfg, img_hw), T, ii, jj, (idx, XiT, w0, active),
                              (X, K))(T)
+    return tgo._adj_wrap(T, ii, B, g)
 
 
 def test_calib_edge_systems_match_jax_f64():

@@ -86,12 +86,15 @@ def _scal(T, ii, jj):
     return torch.cat([sR.reshape(-1, 9), Tij[:, :3]], dim=-1).numpy()
 
 
-def ray_systems(T, ii, jj, XiT, w0, X, active, cfg=tgo.BAConfig()):
+def ray_systems(T, ii, jj, XiT, w0, X, active, cfg=tgo.BAConfig(), relative=False):
     """The ray residual's (A, gj) at poses T through the solves' one
-    edge-system seam (``_edge_systems``), from numpy or torch inputs."""
+    edge-system seam (``_edge_systems``) and the step's AdjInv wrap
+    (``_adj_wrap``), from numpy or torch inputs; ``relative``: the seam's
+    (B, g) before the wrap."""
     T, ii, jj, XiT, w0, X, active = (a if torch.is_tensor(a) else torch.from_numpy(np.array(a))
                                      for a in (T, ii, jj, XiT, w0, X, active))
-    return tgo._edge_systems(partial(tgo._ray_residual, cfg), T, ii, jj, (XiT, w0, active), (X,))(T)
+    B, g = tgo._edge_systems(partial(tgo._ray_residual, cfg), T, ii, jj, (XiT, w0, active), (X,))(T)
+    return (B, g) if relative else tgo._adj_wrap(T, ii, B, g)
 
 
 def _gated_world():
@@ -543,9 +546,11 @@ def test_x64_off_gn_step_matches_jax_on_ill_conditioned_window(monkeypatch):
     d = consecutive_edges(n_kf, hw)
     C = np.full((n_kf, hw, 1), 5.0)
     XiT, w0 = tgo._edges_pre(tgo.BAConfig(), torch.from_numpy(X), torch.from_numpy(C), t_edges(d))
-    A, g = ray_systems(torch.from_numpy(T0).double(), d["ii"], d["jj"], XiT.contiguous(), w0,
-                       torch.from_numpy(X).contiguous(), d["active"])
-    A, g = A.float().numpy(), g.float().numpy()
+    # the rows' f64 systems in f32, wrapped at the f32 poses as the port's step wraps them
+    B, g = ray_systems(torch.from_numpy(T0).double(), d["ii"], d["jj"], XiT.contiguous(), w0,
+                       torch.from_numpy(X).contiguous(), d["active"], relative=True)
+    B, g = B.float(), g.float()
+    A, gA = (t.numpy() for t in tgo._adj_wrap(torch.from_numpy(T0), torch.from_numpy(d["ii"]), B, g))
     o = odom_dict([0], [0], [[0, 0, 0, 0, 0, 0, 1.0]])
     o["active"][:] = False
     sb = np.full(n_kf, -1.0, np.float32)
@@ -554,7 +559,7 @@ def test_x64_off_gn_step_matches_jax_on_ill_conditioned_window(monkeypatch):
         T_j = np.asarray(jgo._solve_gn(
             jgo.BAConfig(max_iters=1), 1, jnp.asarray(T0), j_edges(d),
             jgo.OdomEdges(**{k: jnp.asarray(v) for k, v in o.items()}), jnp.asarray(sb),
-            lambda T: (jnp.asarray(A), jnp.asarray(g))))
+            lambda T: (jnp.asarray(A), jnp.asarray(gA))))
 
     solves = []
     real_solve = torch.cholesky_solve
@@ -568,7 +573,7 @@ def test_x64_off_gn_step_matches_jax_on_ill_conditioned_window(monkeypatch):
     def port_step(solve_f64=False):
         return tgo._solve_gn(tgo.BAConfig(max_iters=1, solve_f64=solve_f64), 1, torch.from_numpy(T0),
                              t_edges(d), tgo.OdomEdges(**{k: torch.from_numpy(v) for k, v in o.items()}),
-                             torch.from_numpy(sb), lambda T: (torch.from_numpy(A), torch.from_numpy(g))).numpy()
+                             torch.from_numpy(sb), lambda T: (B, g)).numpy()
 
     T_t = port_step()
     assert solves == [torch.float32] * 2  # the solve and its one refinement

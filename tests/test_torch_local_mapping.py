@@ -72,8 +72,9 @@ def test_point_edge_systems_match_jax():
     # the point residual's rows, through the solves' one edge-system seam
     X_t, T_t, edges = torch.from_numpy(X), torch.from_numpy(T), t_edges(d)
     XiT, w0 = tgo._edge_cache(cfg_t, X_t, torch.from_numpy(C), edges)
-    A, g = tgo._edge_systems(partial(tgo._point_residual, cfg_t), T_t, edges.ii, edges.jj,
+    B, g = tgo._edge_systems(partial(tgo._point_residual, cfg_t), T_t, edges.ii, edges.jj,
                              (XiT, w0, tgo._xj_rows(X_t, edges.jj)))(T_t)
+    A, g = tgo._adj_wrap(T_t, edges.ii, B, g)
     jXiT, jw0, jXjT = jgo._edge_inputs(cfg_j, jnp.asarray(X), jnp.asarray(C), j_edges(d))
     Aj, gj = jax.vmap(lambda ii, jj, xi, w, xj: jgo._point_edge_system(
         cfg_j, jnp.asarray(T), ii, jj, xi.T, w, xj.T))(jnp.asarray(d["ii"]), jnp.asarray(d["jj"]), jXiT, jw0, jXjT)
