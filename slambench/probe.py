@@ -2,10 +2,11 @@
 
 Installed on the system under test for the window, in every run:
 
-- forward hooks on each head's DPT and local-feature MLP keep the inputs
-  and the output of the latest call of each, so that the reference's
-  heads can be judged on the program's own inputs
-  (:func:`~slambench.reference.head_rel_err`);
+- forward hooks on the head modules that the cell's architecture names
+  (``head_modules`` of ``archs/<arch>.py``; MASt3R's: each head's DPT and
+  local-feature MLP) keep the inputs and the output of the latest call of
+  each, so that the reference's heads can be judged on the program's own
+  inputs (the architecture's ``head_err``);
 - a wrapper at the name through which the backend looks up its pair
   decode (``frodo_slam_tpu_torch.slam.backend.decode_asymmetric``) counts
   the decodes of a session and keeps both views' pointmaps and confidences
@@ -25,12 +26,14 @@ from typing import Dict, List, Optional
 import numpy as np
 
 BACKEND = ("frodo_slam_tpu_torch.slam.backend", "decode_asymmetric")
-HEADS = ("downstream_head1", "downstream_head2")
 
 
 class Probe:
-    def __init__(self, model):
-        self.model = model
+    """``heads``: the (kind, head, module) to hook, as the architecture's
+    ``head_modules`` gives them."""
+
+    def __init__(self, heads):
+        self._modules = heads
         self._handles = []
         self._undo = None
         self._heads: Dict[tuple, tuple] = {}
@@ -39,10 +42,8 @@ class Probe:
         self.decodes = 0
 
     def install(self) -> "Probe":
-        for pre in HEADS:
-            head = getattr(self.model, pre)
-            self._handles.append(head.dpt.register_forward_hook(self._keep("dpt", pre)))
-            self._handles.append(head.head_local_features.register_forward_hook(self._keep("mlp", pre)))
+        for kind, pre, module in self._modules:
+            self._handles.append(module.register_forward_hook(self._keep(kind, pre)))
         module = importlib.import_module(BACKEND[0])
         fn = getattr(module, BACKEND[1], None)
         if fn is None:
@@ -72,7 +73,7 @@ class Probe:
 
     def _keep(self, kind, pre):
         def hook(module, args, output):
-            inp = list(args[0]) if kind == "dpt" else args[0]
+            inp = list(args[0]) if isinstance(args[0], (list, tuple)) else args[0]
             self._heads[(kind, pre)] = (inp, output)
         return hook
 
@@ -85,11 +86,11 @@ class Probe:
 
     def end(self) -> Dict:
         """What the session kept, on the host: ``heads`` [(kind, head,
-        inputs, output)], ``decodes``, ``backend_views`` [(X (hw, 3), C (hw,
+        inputs (a tensor, or a list where the module took one), output)], ``decodes``, ``backend_views`` [(X (hw, 3), C (hw,
         1))], each view of each sampled decode."""
         heads = []
         for (kind, pre), (inp, out) in sorted(self._heads.items()):
-            inp = [t.cpu() for t in inp] if kind == "dpt" else inp.cpu()
+            inp = [t.cpu() for t in inp] if isinstance(inp, list) else inp.cpu()
             heads.append((kind, pre, inp, out.cpu()))
         views = []
         for X1, C1, X2, C2 in self._views:

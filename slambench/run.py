@@ -10,7 +10,10 @@ through ``SLAM`` for ``--seconds`` (whole sessions: the session in flight
 when the time is up is finished), then the comparison with the plain
 reference that decides ``correct``, then one JSON line. Everything a cell
 needs is found by name: ``configs/<config>.yaml``, ``traffic/<traffic>.json``,
-``limits/<config>.json`` and ``metrics/<metric>.py``.
+``limits/<config>.json``, ``metrics/<metric>.py`` and, from the
+configuration's ``model.arch`` (``mast3r`` where absent),
+``archs/<arch>.py``: the model, its seeded weights, the plain reference, the
+heads the probe hooks and the frozen work counts.
 
 Without a card, or with fewer cards than the cell asks for, it exits 2 and
 prints no result.
@@ -23,7 +26,6 @@ import time
 T_PROCESS = time.time()  # before the heavy imports: set-up starts here
 
 import argparse  # noqa: E402
-import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
@@ -35,6 +37,7 @@ from typing import Dict, List, Optional  # noqa: E402
 
 import numpy as np  # noqa: E402
 
+from .archs import arch_name, load_arch  # noqa: E402
 from .probe import Probe  # noqa: E402
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -48,7 +51,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "frodo_slam_tpu"}
 
 def load_cell(workload: str, root: pathlib.Path = ROOT) -> Dict:
     """The cell ``workload`` of ``BENCHMARK.json`` with its configuration,
-    traffic mix, limits and metrics (dicts of BENCHMARK.json's entries)."""
+    traffic mix, limits and metrics (dicts of BENCHMARK.json's entries),
+    its architecture's name and the root it is found under."""
     import yaml
 
     bench = json.loads((root / "BENCHMARK.json").read_text())
@@ -61,13 +65,15 @@ def load_cell(workload: str, root: pathlib.Path = ROOT) -> Dict:
     config = yaml.safe_load((root / conf["file"]).read_text())
     traffic = json.loads((here / "traffic" / f"{cell['traffic']}.json").read_text())
     limits = json.loads((here / "limits" / f"{cell['config']}.json").read_text())
+    arch = arch_name(config)
+    load_arch(arch, root)  # an unknown architecture fails here, with its name and path
 
     def mine(m):
         return "workloads" not in m or workload in m["workloads"]
 
     return {
         "cell": cell, "config_entry": conf, "config": config, "config_path": root / conf["file"],
-        "traffic": traffic, "limits": limits,
+        "traffic": traffic, "limits": limits, "arch": arch, "root": root,
         "end_to_end": [m for m in bench["end_to_end"] if mine(m)],
         "per_layer": [m for m in bench["per_layer"] if mine(m)],
     }
@@ -88,7 +94,9 @@ def load_metric(name: str, root: pathlib.Path = ROOT):
 # ---------------------------------------------------------------------------
 
 class System:
-    """The port's model and SLAM for one configuration, on ``device``."""
+    """The port's model and SLAM for one configuration, on ``device``; the
+    model, its weights and the rest of what the harness takes from it come
+    from the configuration's architecture (``self.arch``)."""
 
     def __init__(self, c: Dict, seed: int, device):
         import torch
@@ -96,10 +104,7 @@ class System:
         from frodo_slam_tpu_torch.config import make_config, merge_config
         from frodo_slam_tpu_torch.data.datasets import Intrinsics
         from frodo_slam_tpu_torch.data.image import resize_img
-        from frodo_slam_tpu_torch.models import mast3r
-
-        from . import weights
-
+        self.arch = load_arch(c["arch"], c["root"])
         self.device = torch.device(device)
         self.widths = c["config"]["model"]
         cfg = make_config(str(c["config_path"]))
@@ -119,14 +124,8 @@ class System:
         dtype = getattr(torch, cfg["tpu"]["dtype"])
         head_dtype = getattr(torch, cfg["tpu"]["head_dtype"])
         served_head = getattr(torch, c["config"]["tpu"]["head_dtype"])
-        keys = [f.name for f in dataclasses.fields(mast3r.MASt3RConfig)]
-        mw = {k: (tuple(v) if isinstance(v, list) else v) for k, v in self.widths.items() if k in keys}
-        mcfg = mast3r.MASt3RConfig(**mw, dtype=dtype, head_dtype=head_dtype)
-        sd = weights.make(self.widths, seed, self.device, dtype=dtype, head_dtype=served_head)
-        with torch.device("meta"):
-            model = mast3r.MASt3R(mcfg)
-        model.load_state_dict(sd, strict=True, assign=True)
-        self.model = model.eval()
+        sd = self.arch.make_weights(self.widths, seed, self.device, dtype=dtype, head_dtype=served_head)
+        self.model = self.arch.build_model(self.widths, sd, dtype=dtype, head_dtype=head_dtype)
         self.pipelined = bool(cfg["tpu"].get("pipelined_frontend", False))
         self.cuda = self.device.type == "cuda"
         self.base_bytes = torch.cuda.memory_allocated(self.device) if self.cuda else 0
@@ -236,8 +235,7 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
 
     from frodo_slam_tpu_torch.utils import spans
 
-    from . import reference, trace as trace_mod, weights
-    from .yardstick import BF16_OPS_PER_S, model_flops
+    from . import reference, trace as trace_mod
 
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -249,6 +247,7 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
     traffic = c["traffic"]
     session_len = traffic.get("session_frames")
     system = System(c, seed, device)
+    arch = system.arch
     images = session_images(system.cam_hw, seed, int(traffic["images"]) + 1)
     warm_img = images.pop()  # the warm-up's own image, never judged
     run_session(system, warm_img, int(traffic["warmup_frames"]), None)
@@ -258,7 +257,7 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
     setup_s = time.time() - t_start
 
     tracer = trace_mod.Tracer().install() if trace else None
-    probe = Probe(system.model).install()
+    probe = Probe(arch.head_modules(system.model)).install()
     thresh = float(traffic["match_frac_thresh"])
     prof = None
     sessions, slice_info = [], None
@@ -292,6 +291,7 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
             break
     window_s = time.perf_counter() - t0
     probe.uninstall()
+    del probe  # it holds the model's head modules
     if tracer is not None:
         tracer.uninstall()
 
@@ -310,16 +310,15 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
     summary = None
     if trace:
         t_sum = time.perf_counter()
-        summary = trace_mod.summarize(prof, tracer, slice_info["seconds"], spans.records())
+        summary = trace_mod.summarize(prof, tracer, slice_info["seconds"], spans.records(), arch.MODEL_SPANS)
         print(f"slambench: the trace of {slice_info['frames']} frames read in "
               f"{time.perf_counter() - t_sum:.1f} s; spans and trace: {json.dumps(summary['linking'])}",
               file=sys.stderr)
-        fl = model_flops(system.widths, system.img_hw)
+        # the readers look the work counts up in the cell's architecture
         summary.update(slice_frames=slice_info["frames"], slice_kf_tasks=slice_info["kf_tasks"],
-                       flops_frame=fl["total"], flops_backend_decode=fl["total"] - fl["encode"],
-                       bf16_peak=BF16_OPS_PER_S,
-                       attention_shape={"widths": system.widths, "img_hw": system.img_hw,
-                                        "dtype": c["config"]["tpu"]["dtype"]})
+                       arch=c["arch"], arch_root=str(c["root"]),
+                       model_shape={"widths": system.widths, "img_hw": system.img_hw,
+                                    "dtype": c["config"]["tpu"]["dtype"]})
         dev["busy_s"] = summary["busy_s"]
         dev["window_s"] = summary["window_s"]
         del prof
@@ -330,18 +329,17 @@ def run_cell(c: Dict, seed: int, seconds: float, trace: bool, device, t_start: f
     if cuda:
         torch.cuda.empty_cache()
     m = c["config"]["model"]
-    ref_sd = weights.make(m, seed, device, dtype=getattr(torch, c["config"]["tpu"]["dtype"]),
-                          head_dtype=getattr(torch, c["config"]["tpu"]["head_dtype"]))
-    ref, ref_bf16 = reference.Ref(ref_sd, m), reference.Ref(ref_sd, m, precision="bf16")
+    ref_sd = arch.make_weights(m, seed, device, dtype=getattr(torch, c["config"]["tpu"]["dtype"]),
+                               head_dtype=getattr(torch, c["config"]["tpu"]["head_dtype"]))
+    ref, ref_bf16 = arch.make_reference(ref_sd, m), arch.make_reference(ref_sd, m, precision="bf16")
     del ref_sd
     refs = {}
     for s in sessions:
         if s["image"] not in refs:
-            net = reference.network_input(images[s["image"]], int(c["config"]["camera"]["long_side"]))
-            refs[s["image"]] = (*reference.reference_views(ref, net, device),
-                                reference.reference_views(ref_bf16, net, device)[0])
+            net = arch.net_input(images[s["image"]], int(c["config"]["camera"]["long_side"]))
+            refs[s["image"]] = (*arch.ref_views(ref, net, device), arch.ref_views(ref_bf16, net, device)[0])
     checks = reference.compare(sessions, refs, thresh)
-    checks["head_rel_err"] = reference.head_rel_err(ref, [h for s in sessions for h in s["heads"]], device)
+    checks["head_rel_err"] = arch.head_err(ref, [h for s in sessions for h in s["heads"]], device)
     return {"metrics": metrics, "device": dev, "checks": checks, "summary": summary,
             "attempted": sum(s["n_submitted"] for s in sessions),
             "failed": sum(s["n_submitted"] - sum(1 for ok, _, _ in s["frames"] if ok) for s in sessions)}

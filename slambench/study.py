@@ -7,8 +7,8 @@ For each seed, in one process: one short run of the cell (its set-up, a
 window of ``--seconds``, whole sessions) and the numbers that the
 comparison gives, one JSON line each (``"kind": "program"``). With
 ``--control n``, for the first n seeds the reference in the program's
-place one step below the stated precision
-(``reference.Ref(precision="control")``) and compared as the program is
+place one step below the stated precision (the cell's architecture's
+``make_reference(precision="control")``) and compared as the program is
 (``"kind": "control"``). With ``--heads-bf16 n``, for the first n seeds the
 program with its own bf16 head path switched on (``tpu.head_dtype``)
 (``"kind": "program_heads_bf16"``). Not run by the benchmark's own runs.
@@ -26,31 +26,28 @@ import time
 import numpy as np
 import torch
 
-from . import reference, run, weights
+from . import reference, run
 
 
 def control_checks(c, seed: int, device, n_frames: int):
     """The comparison's numbers for the control: every session of the cell
     stands in for by the control's pointmap and confidence (N times), the
     identity poses, the expected counts and, in the keyframe cells, the
-    control's views as the backend's decodes; its heads (TF32) are judged
-    on its own head inputs."""
+    control's views as the backend's decodes; its heads (TF32 for MASt3R)
+    are judged on its own head inputs."""
+    arch = run.load_arch(c["arch"], c["root"])
     m = c["config"]["model"]
     tpu = c["config"]["tpu"]
-    sd = weights.make(m, seed, device, dtype=getattr(torch, tpu["dtype"]),
-                      head_dtype=getattr(torch, tpu["head_dtype"]))
-    ref, ctrl = reference.Ref(sd, m), reference.Ref(sd, m, precision="control")
-    ref_bf16 = reference.Ref(sd, m, precision="bf16")
+    sd = arch.make_weights(m, seed, device, dtype=getattr(torch, tpu["dtype"]),
+                           head_dtype=getattr(torch, tpu["head_dtype"]))
+    ref, ctrl = arch.make_reference(sd, m), arch.make_reference(sd, m, precision="control")
+    ref_bf16 = arch.make_reference(sd, m, precision="bf16")
     del sd
     h, w = int(c["config"]["camera"]["height"]), int(c["config"]["camera"]["width"])
     img = run.session_images((h, w), seed, 1)[0]
-    net = reference.network_input(img, int(c["config"]["camera"]["long_side"]))
-    X, C = reference.reference_views(ref, net, device)
-    reference.set_f32_numerics()
-    r1, _, hooks = ctrl.pair(torch.as_tensor(net, device=device), with_hooks=True)
-    Xc = r1["pts3d"].reshape(-1, 3).double().cpu().numpy()
-    Cc = r1["conf"].reshape(-1, 1).double().cpu().numpy()
-    head = reference.head_rel_err(ref, ctrl.head_calls(*hooks), device)
+    net = arch.net_input(img, int(c["config"]["camera"]["long_side"]))
+    X, C = arch.ref_views(ref, net, device)
+    Xc, Cc, head = arch.control_views(ref, ctrl, net, device)
     thresh = float(c["traffic"]["match_frac_thresh"])
     exp = reference.expected_session(n_frames, thresh)
     n_kf = len(exp["slot_N"])
@@ -65,7 +62,7 @@ def control_checks(c, seed: int, device, n_frames: int):
             "pairs": [(i - 1, i) for i in range(1, n_kf)], "decodes": n_kf - 1,
             "backend_views": [(Xc.astype(np.float32), Cc.astype(np.float32))] * (4 if n_kf > 1 else 0),
             "solve_poses": n_kf if n_kf > 1 else 0}
-    Xb, _ = reference.reference_views(ref_bf16, net, device)
+    Xb, _ = arch.ref_views(ref_bf16, net, device)
     return dict(reference.compare([sess], {0: (X, C, Xb)}, thresh), head_rel_err=head)
 
 

@@ -29,8 +29,11 @@ def test_benchmark_json_keys_and_names():
     for m in BENCH["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    cells = {w["name"] for w in BENCH["workloads"]}
     for m in BENCH["per_layer"]:
         assert m["moves"] == "fps" and "fps" in e2e and "workloads" not in e2e["fps"]
+        # every reader names its cells, so a cell that a later change adds gets none by accident
+        assert m["workloads"] and set(m["workloads"]) <= cells, m["name"]
     assert all(w["chips"] == 1 for w in BENCH["workloads"])
     assert len(json.dumps(BENCH)) < 64 * 1024
 
@@ -38,7 +41,7 @@ def test_benchmark_json_keys_and_names():
 @pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
 def test_cell_loads(workload):
     c = run.load_cell(workload)
-    assert c["cell"]["name"] == workload
+    assert c["cell"]["name"] == workload and c["arch"] == "mast3r"
     assert {"match_frac_thresh", "session_frames", "images", "warmup_frames", "trace_frames"} <= set(c["traffic"])
     assert set(c["limits"]) == {"pts_rel_ratio", "conf_excess_rel_p50", "pose_dist_max", "discrete_mismatch",
                                 "head_rel_err"}

@@ -58,7 +58,7 @@ def test_readers_survive_a_cuda_graph_of_the_encode():
             graph.replay()
         torch.cuda.synchronize()
     window = time.perf_counter() - t0
-    s = trace.summarize(prof, trace.Tracer(), window, spans.records())
+    s = trace.summarize(prof, trace.Tracer(), window, spans.records(), ("model.encode", "model.decode"))
     assert (feat - eager).abs().max() <= 1e-2 * eager.abs().max()
 
     kernel_s = s["busy_s"]
@@ -70,7 +70,8 @@ def test_readers_survive_a_cuda_graph_of_the_encode():
     assert set(s["span_device_s"]) == {"model.encode"} and s["span_device_s"]["model.encode"] > 0
     assert s["linking"]["attn_in_model"] == 1.0
     assert s["kernel_time_s"]["attention"] > 0 and s["model_calls"] == [["model.encode", 1, 1]]
-    s.update(slice_frames=1, attention_shape={"widths": m, "img_hw": hw, "dtype": "bfloat16"})
+    s.update(slice_frames=1, arch="mast3r", arch_root=str(run.ROOT),
+             model_shape={"widths": m, "img_hw": hw, "dtype": "bfloat16"})
     pct = run.load_metric("attn_roofline_pct").read(s)
     dev_ms = run.load_metric("model_dev_ms").read(s)
     print(f"graph replay: attn_roofline_pct {pct!r}, model_dev_ms {dev_ms!r}")

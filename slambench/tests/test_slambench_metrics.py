@@ -6,11 +6,15 @@ import types
 
 import pytest
 import torch
+import yaml
 
 from slambench import run, trace, yardstick
 
 VIT_L = dict(patch_size=16, enc_embed_dim=1024, enc_depth=24, enc_num_heads=16, dec_embed_dim=768,
              dec_depth=12, dec_num_heads=12)
+# the configuration's whole model section, for the frame's FLOP count
+MODEL = yaml.safe_load((run.ROOT / "slambench/configs/mast3r-vitl-384x512-tum-calib.yaml").read_text())["model"]
+MODEL_SPANS = ("model.encode", "model.decode")
 
 # a recorded slice: 4 frames, 3 keyframe tasks, 0.5 s
 SLICE = {
@@ -18,11 +22,11 @@ SLICE = {
     "span_device_s": {"model.encode": 0.04, "model.decode": 0.08},
     "span_host_s": {"tracker.track_step": [0.1, 0.3, 0.2], "backend.solve_calib": [0.02, 0.01, 0.05, 0.03]},
     "kernel_time_s": {"attention": 0.01, "ray": 0.0},
-    "model_calls": [["model.decode", 1, 7], ["model.encode", 1, 4]],
-    "attention_shape": {"widths": VIT_L, "img_hw": (384, 512), "dtype": "bfloat16"},
+    "model_calls": [["model.decode", 1, 7], ["model.encode", 1, 4]], "model_spans": list(MODEL_SPANS),
+    "arch": "mast3r", "arch_root": str(run.ROOT),
+    "model_shape": {"widths": MODEL, "img_hw": (384, 512), "dtype": "bfloat16"},
     "calls": {},
-    "slice_frames": 4, "slice_kf_tasks": 3, "flops_frame": 1.5e12, "flops_backend_decode": 1.0e12,
-    "bf16_peak": 989e12,
+    "slice_frames": 4, "slice_kf_tasks": 3,
 }
 
 
@@ -32,7 +36,8 @@ def read(name, s=SLICE):
 
 def test_readers_arithmetic():
     assert read("device_idle_pct") == pytest.approx(60.0)
-    assert read("mfu_pct") == pytest.approx(100 * (4 * 1.5e12 + 3 * 1.0e12) / 0.5 / 989e12)
+    fl = yardstick.model_flops(MODEL, (384, 512))  # 1.5102 TFLOP a frame, 0.9871 a pair decode
+    assert read("mfu_pct") == pytest.approx(100 * (4 * fl["total"] + 3 * (fl["total"] - fl["encode"])) / 0.5 / 989e12)
     assert read("launches_per_frame") == 1000 and read("syncs_per_frame") == 15
     assert read("model_dev_ms") == pytest.approx(30.0)
     assert read("track_host_ms") == pytest.approx(200.0)
@@ -130,7 +135,7 @@ def _prof(events):
 
 
 def test_summarize_program_spans_on_a_recorded_trace():
-    s = trace.summarize(_prof(EVENTS), trace.Tracer(), 800e-6, RECORDS)
+    s = trace.summarize(_prof(EVENTS), trace.Tracer(), 800e-6, RECORDS, MODEL_SPANS)
     us = pytest.approx
     assert s["busy_s"] == us(95e-6) and s["launches"] == 7 and s["syncs"] == 1
     # each kernel to the innermost span open on its launching thread when
@@ -155,11 +160,11 @@ def test_summarize_program_spans_on_a_recorded_trace():
 def test_summarize_without_program_spans():
     # a program without its own spans: the device readings stand, the
     # span readings hold nothing, and the readers read None
-    s = trace.summarize(_prof(EVENTS), trace.Tracer(), 800e-6, [])
+    s = trace.summarize(_prof(EVENTS), trace.Tracer(), 800e-6, [], MODEL_SPANS)
     assert s["launches"] == 7 and s["span_device_s"] == {} and s["span_host_s"] == {} and s["model_calls"] == []
     assert all(label == "outside spans" for label, _ in s["idle_gaps"])
     assert s["linking"]["attn_in_model"] == 0.0
-    s.update(slice_frames=4, attention_shape=SLICE["attention_shape"])
+    s.update(slice_frames=4, **{k: SLICE[k] for k in ("model_shape", "arch", "arch_root")})
     for name in ("model_dev_ms", "track_host_ms", "solve_ms", "attn_roofline_pct"):
         assert read(name, s) is None
 

@@ -15,7 +15,9 @@ ray kernel's bound needs. A name that is gone fails the run.
 :func:`summarize` reduces the profiler's events and the program's records
 to what the per-layer readers under ``metrics/`` take: device intervals,
 kernel time by name, device time under each program span, host time of
-each program span, synchronisations, the model's forwards by batch.
+each program span, synchronisations, the model's forwards by batch (the
+forwards are the records of the spans that the cell's architecture names,
+its ``MODEL_SPANS``).
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ import torch
 RECORDED = {("frodo_slam_tpu_torch.slam.global_opt", "ray_edge_systems"): "ray"}
 # the hand-written kernels' device names
 KERNEL_NAMES = {"attention": ("flash_fwd",), "ray": ("ray_edge_kernel",)}
-# the program's model spans: a forward each, attribute ``batch`` (1 if absent)
-MODEL_SPANS = ("model.encode", "model.decode")
 
 
 class Tracer:
@@ -173,9 +173,11 @@ def _owners(times, spans):
     return own
 
 
-def summarize(prof, tracer: Tracer, window_s: float, records: List[Dict]) -> Dict:
+def summarize(prof, tracer: Tracer, window_s: float, records: List[Dict], model_spans) -> Dict:
     """What the readers take from one traced slice: the profiler's trace and
-    the program's span ``records`` of the same slice. Times in seconds.
+    the program's span ``records`` of the same slice, whose spans named in
+    ``model_spans`` hold a forward of the model each (attribute ``batch``, 1
+    if absent). Times in seconds.
 
     A kernel belongs to the innermost program span that was open on its
     launching thread when the runtime call that launched it started (the
@@ -205,7 +207,7 @@ def summarize(prof, tracer: Tracer, window_s: float, records: List[Dict]) -> Dic
         s, t = r["start_ns"] * 1e-9, r["end_ns"] * 1e-9
         spans_by_thread[r["thread"]].append((s, t, r["name"]))
         host[r["name"]].append(t - s)
-        if r["name"] in MODEL_SPANS:
+        if r["name"] in model_spans:
             model_calls[(r["name"], int(r["attrs"].get("batch", 1)))] += 1
 
     launched = defaultdict(list)  # trace thread -> (launch s, device s, kernel name)
@@ -228,7 +230,7 @@ def summarize(prof, tracer: Tracer, window_s: float, records: List[Dict]) -> Dic
                 span_dev[sp[o][2]] += d
             if any(n in name for n in KERNEL_NAMES["attention"]):
                 attn[1] += 1
-                attn[0] += int(o >= 0 and sp[o][2] in MODEL_SPANS)
+                attn[0] += int(o >= 0 and sp[o][2] in model_spans)
 
     merged = _merge([(s, t) for s, t, _, _ in dev])
     busy = sum(t - s for s, t in merged)
@@ -252,6 +254,7 @@ def summarize(prof, tracer: Tracer, window_s: float, records: List[Dict]) -> Dic
         "span_host_s": dict(host),
         "kernel_time_s": kernel_time,
         "model_calls": [[name, b, n] for (name, b), n in sorted(model_calls.items())],
+        "model_spans": list(model_spans),
         "calls": tracer.calls,
         # how the spans met the trace: kernels without a runtime call, how
         # trace threads were matched, the attention launches' share in a model span
